@@ -5,24 +5,35 @@
 
 Phases, in order; any failure exits non-zero:
   1. the card: nvidia-smi name and power limit, torch's device name;
-  2. build the CUDA kernels from src/repro_torch/csrc (one nvcc per source);
+  2. build the CUDA kernels from src/repro_torch/csrc (one nvcc per source,
+     all started together);
   3. every kernel against its plain torch version on the card: interp encode
      over spline x scheme x anchor stride on random and smooth blocks, interp
      decode (bit-equal to the encoder's recon), histogram256 against
-     torch.bincount at ragged and unaligned lengths;
-  4. the main path at full size: a Nyx-like lognormal 512^3 float32 field
-     made on the card from --seed, Compressor().compress() then
-     .decompress(out="device") under the default spec, with launch counts
-     reset just before and read just after;
-  5. the card's container against the port's CPU path on a 96^3 field;
-  6. per-kernel times at the main path's shapes (CUDA events) beside the
-     plain version, the byte/operation bound and, for the histogram,
+     torch.bincount at ragged and unaligned lengths, bitshuffle and
+     bitunshuffle (exact, and against the host bit1 stage) at ragged lengths
+     up to 512^3, the Lorenzo encode (exact) on 1-D, 2-D, 3-D and batched
+     fields with forced outliers and int32 saturation;
+  4. four paths at full size on one Nyx-like lognormal 512^3 float32 field
+     made on the card from --seed: the main path (the default spec: interp,
+     autotune, pipeline cr), then the presets cusz_hi_tp (pipeline tp),
+     fzgpu_like (Lorenzo + fz) and cusz_l (Lorenzo + hf); each compress()
+     then decompress(out="device"), with launch counts reset just before
+     and read just after, and each path's kernels checked as launched;
+  5. for the same four, the card's container against the port's CPU path
+     on a 96^3 field (the Lorenzo containers byte-equal);
+  6. per-kernel times at the paths' shapes (CUDA events) beside the plain
+     version, the byte/operation bound and, for the histogram,
      torch.bincount as a library yardstick;
-  7. where the time goes: one more compress + decompress of the field under
-     torch.profiler, by tracing span (host wall and device time) and by
-     device kernel, with the device's idle share of the wall time.
+  7. where the time goes: one more compress + decompress of the field on
+     each path under torch.profiler, by tracing span (host wall and device
+     time) and by device kernel, with the device's idle share.
 Prints one JSON line of kernels, then, as the last line,
 {"ok": true, "device": {...}}. Without CUDA it exits non-zero and prints no result.
+
+The bitunshuffle kernel is held against its plain version and timed, but
+no path launches it: bit1 never shrinks a stream, so the LLP2 format (the
+JAX package's) stores the stage through and no decode reaches its inverse.
 """
 from __future__ import annotations
 
@@ -40,6 +51,15 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12     # H100 SXM fp32 outside the tensor cores
 SLACK = 1e-4               # repo-wide f32 bound slack
 MIN_AGREE = 0.9999         # code agreement, kernel vs plain
+
+# the paths of phase 4: preset (None: the default spec) and the kernels its
+# compress + decompress must launch
+PATHS = {
+    "main": (None, ("interp_encode", "interp_decode", "histogram256")),
+    "cusz_hi_tp": ("cusz_hi_tp", ("interp_encode", "interp_decode", "bitshuffle")),
+    "fzgpu_like": ("fzgpu_like", ("lorenzo_encode", "bitshuffle")),
+    "cusz_l": ("cusz_l", ("lorenzo_encode", "histogram256")),
+}
 
 
 class SmokeFailure(AssertionError):
@@ -165,13 +185,58 @@ def phase_kernels(device, seed: int) -> None:
                 check(torch.equal(hist.histogram256(x), torch.bincount(x, minlength=256)),
                       f"histogram256 != bincount (n={n}, offset={off}, skewed={skew})")
     say(f"histogram256 == torch.bincount for n in {sizes}, aligned and unaligned, uniform and skewed")
+    phase_bits_lorenzo(device, g)
+
+
+def phase_bits_lorenzo(device, g) -> None:
+    import torch
+
+    from repro_torch.core import lorenzo as plain_lorenzo
+    from repro_torch.core.lossless import bitshuffle as host_bit
+    from repro_torch.kernels import bitshuffle as bits
+    from repro_torch.kernels import lorenzo3d as lor
+
+    sizes = (0, 1, 8191, 8192, 8193, 10**6 + 3, 512**3)
+    for n in sizes:
+        d = torch.randint(0, 256, (n + 3,), generator=g, device=device, dtype=torch.uint8)
+        for off in (0, 3):  # 3: an unaligned input, which the wrapper copies
+            x = d[off : off + n]
+            planes = bits.bitshuffle(x)
+            check(torch.equal(planes, bits.bitshuffle_plain(x)), f"bitshuffle != plain (n={n}, offset={off})")
+            back = bits.bitunshuffle(planes)
+            check(torch.equal(back, bits.bitunshuffle_plain(planes)), f"bitunshuffle != plain (n={n}, offset={off})")
+            check(torch.equal(back[:n], x), f"bitunshuffle(bitshuffle(x)) != x (n={n}, offset={off})")
+        host = host_bit.bitshuffle_encode(x.cpu().numpy())[0]
+        check(planes.cpu().numpy().tobytes() == host, f"bitshuffle != the host bit1 stage (n={n})")
+    for block in (1024, 32):  # blocks other than the format's 8192
+        x = d[: 5 * block - 3]
+        planes = bits.bitshuffle(x, block)
+        check(torch.equal(planes, bits.bitshuffle_plain(x, block)) and
+              torch.equal(bits.bitunshuffle(planes, block), bits.bitunshuffle_plain(planes, block)),
+              f"bitshuffle kernels != plain at block {block}")
+    say(f"bitshuffle / bitunshuffle == plain and == the host bit1 stage for n in {sizes}, aligned and unaligned")
+    shapes = [((1_000_003,), 1), ((37, 45), 2), ((1000, 999), 2), ((33, 35, 70), 3), ((129, 257, 100), 3),
+              ((3, 9, 31, 40), 3), ((4, 6, 65, 63), 2), ((7, 3001), 1), ((1, 1, 1), 3)]
+    n_out = 0
+    for shape, nd in shapes:
+        for twoeb, scale in ((0.02, 1.0), (2e-6, 1e4)):  # 2e-6 on |x| ~ 1e4: x / 2eb passes 2^31
+            x = torch.randn(shape, generator=g, device=device).cumsum(-1) * scale
+            x.view(-1)[:: 101] += 500.0 * scale  # forced outliers
+            codes, idx, vals = lor.lorenzo_encode(x, twoeb, nd)
+            pc, po, pfull = plain_lorenzo.lorenzo_encode(x, twoeb, nd)
+            pidx = torch.nonzero(po.reshape(-1)).reshape(-1)
+            check(torch.equal(codes, pc) and torch.equal(idx, pidx) and torch.equal(vals, pfull.reshape(-1)[pidx]),
+                  f"lorenzo encode != plain (shape {shape}, ndim {nd}, 2eb {twoeb})")
+            n_out += int(idx.numel())
+    say(f"lorenzo encode == plain (codes, ascending outlier indices, deltas) on {len(shapes)} shapes x 2 bounds, "
+        f"{n_out} outliers in all")
 
 
 def _is_span(name: str) -> bool:
     return name.startswith(("compress.", "decompress.")) or name.endswith((".encode", ".decode"))
 
 
-def phase_profile(comp, x) -> dict:
+def phase_profile(comp, x, label: str) -> dict:
     """Profile one compress + decompress; returns the breakdown: per tracing
     span its host wall time and the device time of the kernels launched
     inside it, per kernel name its device time, and the device's busy and
@@ -204,13 +269,139 @@ def phase_profile(comp, x) -> dict:
     spans = sorted(spans.values(), key=lambda r: -r["host_ms"])
     kernels = sorted(kernels.values(), key=lambda r: -r["device_ms"])[:15]
     idle = 1.0 - busy_ms / wall_ms
-    say(f"profile (compress + decompress, {x.numel()} points): wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms, "
+    say(f"profile {label} (compress + decompress, {x.numel()} points): wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms, "
         f"device idle share {idle:.3f}")
     for r in spans:
         say(f"  span {r['span']:<26} x{r['count']:<3} host {r['host_ms']:9.2f} ms  device {r['device_ms']:9.2f} ms")
     for r in kernels:
         say(f"  kernel x{r['count']:<5} {r['device_ms']:9.2f} ms  {r['name']}")
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms, "device_idle_share": idle, "spans": spans, "kernels": kernels}
+
+
+def run_path(name: str, comp, x, expect) -> tuple[dict, bytes]:
+    """One compress + decompress(out="device") of ``x``, with the launch
+    counts reset just before and read just after; checks the bound, the
+    telemetry and that each kernel in ``expect`` was launched."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.compressor import _sections_unpack
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    buf = comp.compress(x)
+    torch.cuda.synchronize()
+    t_c = time.perf_counter() - t0
+    tel_c = comp.last_telemetry
+    t0 = time.perf_counter()
+    y = comp.decompress(buf, out="device")
+    torch.cuda.synchronize()
+    t_d = time.perf_counter() - t0
+    launches = launch_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    tel_d = comp.last_telemetry
+    header, _ = _sections_unpack(buf)
+    eb_abs = header["eb_abs"]
+    check(y.device == x.device and tuple(y.shape) == tuple(x.shape) and y.dtype == torch.float32,
+          f"{name}: decompress(out='device') gave {y.device} {tuple(y.shape)} {y.dtype}")
+    check(bool(torch.isfinite(y).all()), f"{name}: decoded field has non-finite values")
+    diff = y.double() - x.double()
+    del y
+    err_ratio = float(diff.abs().max()) / eb_abs
+    rng = float(x.max()) - float(x.min())
+    p = 20 * np.log10(rng) - 10 * np.log10(float((diff * diff).mean()))  # range-normalized, as metrics.psnr
+    del diff
+    mb = x.numel() * 4 / 1e6
+    cr = x.numel() * 4 / len(buf)
+    say(f"path {name} {tuple(x.shape)}: mode {header['mode']} pipeline {header['pipeline']}, CR {cr:.4f}, "
+        f"max err/eb_abs {err_ratio:.7f}, PSNR {p:.3f} dB, compress {t_c:.3f} s ({mb / t_c:.1f} MB/s), "
+        f"decompress {t_d:.3f} s ({mb / t_d:.1f} MB/s), peak device memory {peak_gib:.2f} GiB, "
+        f"n_outliers {header['n_outliers']}")
+    say(f"  {name} compress telemetry: {json.dumps(tel_c, default=str)}")
+    say(f"  {name} decompress telemetry: {json.dumps(tel_d, default=str)}")
+    say(f"  {name} launches: {launches}")
+    check(err_ratio <= 1 + SLACK, f"{name}: bound violated: max err/eb {err_ratio}")
+    check(tel_c["fallbacks"] == [] and tel_d["fallbacks"] == [], f"{name}: fallbacks recorded on the card")
+    check(tel_c["verify"]["repairs"] == 0, f"{name}: verify repaired the container: {tel_c['verify']}")
+    for k in expect:
+        check(launches[k] > 0, f"kernel {k} was not launched on the {name} path")
+    return {"shape": list(x.shape), "cr": cr, "err_over_eb": err_ratio, "psnr_db": p, "compress_s": t_c,
+            "decompress_s": t_d, "compress_mbps": mb / t_c, "decompress_mbps": mb / t_d, "peak_gib": peak_gib,
+            "bytes": len(buf), "n_outliers": header["n_outliers"], "telemetry_compress": tel_c,
+            "telemetry_decompress": tel_d, "launches": launches}, buf
+
+
+def bits_lorenzo_times(x, bufs: dict, paths: dict, bound) -> list[dict]:
+    """Phase 6 for the bitshuffle and Lorenzo kernels at the paths' shapes:
+    the fz path's bit1 input (the 512^3 Lorenzo codes) and its field."""
+    import torch
+
+    from repro_torch.core import lorenzo as plain_lorenzo
+    from repro_torch.core.compressor import _sections_unpack
+    from repro_torch.core.lossless import pipelines
+    from repro_torch.kernels import bitshuffle as bits
+    from repro_torch.kernels import lorenzo3d as lor
+
+    header, sections = _sections_unpack(bufs["fzgpu_like"])
+    seq = pipelines.decode(sections[0], device=x.device)  # bit1's input: bit1 is the fz pipeline's first stage
+    planes = bits.bitshuffle(seq)
+    bs_err = int((planes.int() - bits.bitshuffle_plain(seq).int()).abs().max())
+    check(bs_err == 0, f"path shapes: bitshuffle differs from plain by {bs_err}")
+    back = bits.bitunshuffle(planes)
+    bu_err = int((back.int() - bits.bitunshuffle_plain(planes).int()).abs().max())
+    check(bu_err == 0 and torch.equal(back[: seq.numel()], seq), f"path shapes: bitunshuffle differs by {bu_err}")
+    bs_ms = cuda_ms(lambda: bits.bitshuffle(seq), 20)
+    bs_plain = cuda_ms(lambda: bits.bitshuffle_plain(seq), 3)
+    bu_ms = cuda_ms(lambda: bits.bitunshuffle(planes), 20)
+    bu_plain = cuda_ms(lambda: bits.bitunshuffle_plain(planes), 3)
+    n, nb = int(seq.numel()), int(planes.numel())
+    # bitshuffle reads n bytes and writes the padded planes; about 30 integer operations per 8 bytes
+    bs_b = bound(n + nb, 30 * nb / 8)
+    bu_b = bound(2 * nb, 30 * nb / 8)
+    del back, planes
+    twoeb = 2.0 * float(header["eb_abs"])
+    nd = len(header["spatial"])
+    xb = x.reshape((int(header["batch"]),) + tuple(header["spatial"]))
+    codes, idx, vals = lor.lorenzo_encode(xb, twoeb, nd)
+    pc, po, pfull = plain_lorenzo.lorenzo_encode(xb, twoeb, nd)
+    pidx = torch.nonzero(po.reshape(-1)).reshape(-1)
+    l_err = max(int((codes.int() - pc.int()).abs().max()),
+                int((vals.long() - pfull.reshape(-1)[pidx].long()).abs().max()) if idx.numel() else 0)
+    check(torch.equal(idx, pidx) and l_err == 0, f"path shapes: lorenzo encode differs from plain by {l_err}")
+    del pc, po, pfull, pidx
+    l_ms = cuda_ms(lambda: lor.lorenzo_encode(xb, twoeb, nd), 10)
+
+    def plain_call():
+        c, o, full = plain_lorenzo.lorenzo_encode(xb, twoeb, nd)
+        i = torch.nonzero(o.reshape(-1)).reshape(-1)
+        return c, i, full.reshape(-1)[i]
+
+    l_plain = cuda_ms(plain_call, 3)
+    m = int(xb.numel())
+    # reads the f32 field, writes u8 codes and 12 B per outlier; one division,
+    # one rounding and a dozen integer operations per point
+    l_b = bound(5 * m + 12 * int(idx.numel()), 14 * m)
+    say(f"path shapes: bit1 input {n} bytes ({nb} padded), Lorenzo field {tuple(xb.shape)} with "
+        f"{int(idx.numel())} outliers")
+    launches = {name: paths[name]["launches"] for name in paths}
+    return [
+        {"name": "bitshuffle", "route": "cuda", "source": "src/repro_torch/csrc/bitshuffle.cu",
+         "replaces": "src/repro/kernels/bitshuffle/bitshuffle.py:19", "launches": launches["fzgpu_like"]["bitshuffle"],
+         "path": "fzgpu_like", "max_abs_err": bs_err, "ms": bs_ms, "plain_ms": bs_plain, "bound_ms": bs_b[0],
+         "bound_by": bs_b[1], "library_ms": None},
+        {"name": "bitunshuffle", "route": "cuda", "source": "src/repro_torch/csrc/bitshuffle.cu",
+         "replaces": "src/repro/kernels/bitshuffle/bitshuffle.py:32",
+         "launches": sum(launches[name]["bitunshuffle"] for name in launches),
+         "path": None, "max_abs_err": bu_err, "ms": bu_ms, "plain_ms": bu_plain, "bound_ms": bu_b[0],
+         "bound_by": bu_b[1], "library_ms": None},
+        {"name": "lorenzo_encode", "route": "cuda", "source": "src/repro_torch/csrc/lorenzo3d.cu",
+         "replaces": "src/repro/kernels/lorenzo3d/lorenzo3d.py:22",
+         "launches": launches["fzgpu_like"]["lorenzo_encode"], "path": "fzgpu_like", "max_abs_err": l_err,
+         "ms": l_ms, "plain_ms": l_plain, "bound_ms": l_b[0], "bound_by": l_b[1], "library_ms": None},
+    ]
 
 
 def main() -> int:
@@ -226,6 +417,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on an NVIDIA card", file=sys.stderr)
         return 2
+    import repro_torch.core as core
     from repro_torch.core import Compressor, CompressorSpec
     from repro_torch.core import predictor as plain
     from repro_torch.core.blocks import gather_blocks_batch_t, pad_field_batch_t
@@ -235,7 +427,6 @@ def main() -> int:
     from repro_torch.core.autotune import levels_for_stride
     from repro_torch.kernels import histogram as hist
     from repro_torch.kernels import interp3d as interp
-    from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.kernels.build import build, build_dir
 
     device = torch.device("cuda", 0)
@@ -263,79 +454,52 @@ def main() -> int:
     # 3. kernels vs plain
     phase_kernels(device, args.seed)
 
-    # 4. the main path at full size
+    # 4. the paths at full size
     x = nyx_like(args.side, args.seed, device)
     torch.cuda.synchronize()
-    comp = Compressor(CompressorSpec())
-    torch.cuda.reset_peak_memory_stats()
-    reset_launch_counts()
-    t0 = time.perf_counter()
-    buf = comp.compress(x)
-    torch.cuda.synchronize()
-    t_c = time.perf_counter() - t0
-    tel_c = comp.last_telemetry
-    t0 = time.perf_counter()
-    y = comp.decompress(buf, out="device")
-    torch.cuda.synchronize()
-    t_d = time.perf_counter() - t0
-    launches = launch_counts()
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    tel_d = comp.last_telemetry
-    header, sections = _sections_unpack(buf)
+    comps, bufs = {}, {}
+    results["paths"] = {}
+    for name, (preset, kernels) in PATHS.items():
+        comp = Compressor(CompressorSpec()) if preset is None else getattr(core, preset)()
+        results["paths"][name], bufs[name] = run_path(name, comp, x, kernels)
+        comps[name] = comp
+    results["main"] = results["paths"]["main"]
+    header, sections = _sections_unpack(bufs["main"])
     eb_abs = header["eb_abs"]
-    check(y.device == device and tuple(y.shape) == tuple(x.shape) and y.dtype == torch.float32,
-          f"decompress(out='device') gave {y.device} {tuple(y.shape)} {y.dtype}")
-    check(bool(torch.isfinite(y).all()), "decoded field has non-finite values")
-    err_ratio = float((y.double() - x.double()).abs().max()) / eb_abs
-    mb = x.numel() * 4 / 1e6
-    cr = x.numel() * 4 / len(buf)
-    diff = y.double() - x.double()
-    rng = float(x.max()) - float(x.min())
-    p = 20 * np.log10(rng) - 10 * np.log10(float((diff * diff).mean()))  # range-normalized, as metrics.psnr
-    del diff
-    say(f"main path {args.side}^3: CR {cr:.4f}, max err/eb_abs {err_ratio:.7f}, PSNR {p:.3f} dB, "
-        f"compress {t_c:.3f} s ({mb / t_c:.1f} MB/s), decompress {t_d:.3f} s ({mb / t_d:.1f} MB/s), "
-        f"peak device memory {peak_gib:.2f} GiB")
-    say(f"header: splines {header['splines']} schemes {header['schemes']} n_outliers {header['n_outliers']}")
-    say(f"compress telemetry: {json.dumps(tel_c, default=str)}")
-    say(f"decompress telemetry: {json.dumps(tel_d, default=str)}")
-    say(f"launches on the main path: {launches}")
-    check(err_ratio <= 1 + SLACK, f"main path bound violated: max err/eb {err_ratio}")
-    check(tel_c["fallbacks"] == [] and tel_d["fallbacks"] == [], "fallbacks recorded on the card")
-    check(tel_c["verify"]["repairs"] == 0, f"verify repaired the container: {tel_c['verify']}")
-    for name, count in launches.items():
-        check(count > 0, f"kernel {name} was not launched on the main path")
-    results["main"] = {"side": args.side, "cr": cr, "err_over_eb": err_ratio, "psnr_db": p,
-                       "compress_s": t_c, "decompress_s": t_d, "compress_mbps": mb / t_c,
-                       "decompress_mbps": mb / t_d, "peak_gib": peak_gib, "bytes": len(buf), "telemetry_compress": tel_c,
-                       "telemetry_decompress": tel_d, "launches": launches}
+    say(f"main header: splines {header['splines']} schemes {header['schemes']} n_outliers {header['n_outliers']}")
 
     # 5. card path vs the port's CPU path
     xs = smooth_big()
-    bc = Compressor().compress(xs)
-    bh = Compressor(device="cpu").compress(xs)
-    hc, sc = _sections_unpack(bc)
-    hh, sh = _sections_unpack(bh)
-    check((hc["splines"], hc["schemes"]) == (hh["splines"], hh["schemes"]),
-          f"autotune differs: card {hc['splines']} {hc['schemes']} vs cpu {hh['splines']} {hh['schemes']}")
-    cc, ch = pipelines.decode(sc[0]), pipelines.decode(sh[0])
-    agree = float((cc == ch).mean()) if cc.shape == ch.shape else 0.0
-    check(agree >= MIN_AGREE, f"card vs cpu code streams agree {agree:.6f}")
-    if agree == 1.0:
-        check(bc == bh, "code streams equal but containers differ")
-    ys = Compressor(device="cpu").decompress(bc)
-    r96 = float(np.abs(ys.astype(np.float64) - xs).max()) / hc["eb_abs"]
-    check(r96 <= 1 + SLACK, f"card container decoded on cpu: max err/eb {r96}")
-    say(f"96^3 card vs cpu: same plan, codes agree {agree:.7f}, containers equal {bc == bh}, "
-        f"card container on cpu err/eb {r96:.7f}")
-    results["card_vs_cpu"] = {"agree": agree, "bytes_equal": bc == bh, "err_over_eb": r96}
+    results["card_vs_cpu"] = {}
+    for name, (preset, _) in PATHS.items():
+        def make(dev=None, preset=preset):
+            return Compressor(device=dev) if preset is None else getattr(core, preset)(device=dev)
+        bc, bh = make().compress(xs), make("cpu").compress(xs)
+        hc, sc = _sections_unpack(bc)
+        hh, sh = _sections_unpack(bh)
+        if hc["mode"] == "lorenzo":
+            check(bc == bh, f"{name}: card and cpu Lorenzo containers differ")
+            agree = 1.0
+        else:
+            check((hc["splines"], hc["schemes"]) == (hh["splines"], hh["schemes"]),
+                  f"{name}: autotune differs: card {hc['splines']} {hc['schemes']} vs cpu {hh['splines']} {hh['schemes']}")
+            cc, ch = pipelines.decode(sc[0]), pipelines.decode(sh[0])
+            agree = float((cc == ch).mean()) if cc.shape == ch.shape else 0.0
+            check(agree >= MIN_AGREE, f"{name}: card vs cpu code streams agree {agree:.6f}")
+            if agree == 1.0:
+                check(bc == bh, f"{name}: code streams equal but containers differ")
+        ys = Compressor(device="cpu").decompress(bc)
+        r96 = float(np.abs(ys.astype(np.float64) - xs).max()) / hc["eb_abs"]
+        check(r96 <= 1 + SLACK, f"{name}: card container decoded on cpu: max err/eb {r96}")
+        say(f"96^3 {name} card vs cpu: codes agree {agree:.7f}, containers equal {bc == bh}, "
+            f"card container on cpu err/eb {r96:.7f}")
+        results["card_vs_cpu"][name] = {"agree": agree, "bytes_equal": bc == bh, "err_over_eb": r96}
 
-    # 6. kernel times at the main path's shapes
+    # 6. kernel times at the paths' shapes
     twoeb = 2.0 * eb_abs
     stride = int(header["anchor_stride"])
     steps = build_steps(3, 17, levels_for_stride(stride), tuple(header["splines"]), tuple(header["schemes"]))
     blocks = gather_blocks_batch_t(pad_field_batch_t(x[None]))
-    del y
     nb, V = int(blocks.shape[0]), 17 ** 3
     ck, _ = interp.compress_blocks(blocks, twoeb, steps, stride, with_recon=False)  # the main path's call
     ckr, rk = interp.compress_blocks(blocks, twoeb, steps, stride)
@@ -386,6 +550,7 @@ def main() -> int:
     enc_b = bound(nb * V * (4 + 1), nb * (ops_pred + 5 * n_pts))
     dec_b = bound(nb * V * (1 + 4) + anchors.numel() * 4 + keys.numel() * (8 + 4), nb * (ops_pred + 2 * n_pts))
     hist_b = bound(seq.numel() + 256 * 8, seq.numel())
+    launches = results["paths"]["main"]["launches"]
     kernels = [
         {"name": "interp_encode", "route": "cuda", "source": "src/repro_torch/csrc/interp3d.cu",
          "replaces": "src/repro/kernels/interp3d/interp3d.py:61", "launches": launches["interp_encode"],
@@ -400,13 +565,16 @@ def main() -> int:
          "max_abs_err": h_err, "ms": h_ms, "plain_ms": h_plain, "bound_ms": hist_b[0],
          "bound_by": hist_b[1], "library_ms": h_lib},
     ]
+    for k in kernels:
+        k["path"] = "main"
+    kernels += bits_lorenzo_times(x, bufs, results["paths"], bound)
     say(f"main-path shapes: {nb} blocks of 17^3 (codes agree kernel vs plain {enc_agree:.7f}, "
         f"{keys.numel()} outlier keys), hf input {seq.numel()} bytes")
     results["kernels"] = kernels
     del blocks, ck, anchors, keys, vals, seq
 
     # 7. where the time goes
-    results["profile"] = phase_profile(comp, x)
+    results["profile"] = {name: phase_profile(comps[name], x, name) for name in PATHS}
     if args.out:
         out = pathlib.Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)

@@ -5,6 +5,9 @@ compress():  pad -> spline autotune -> interpolation predict+quantize over
 -> level reorder (Eq. 3) -> lossless pipeline (torch twins on the card) ->
 container with anchors and outliers -> verify. decompress() replays the
 same arithmetic from the codes (the interp decode CUDA kernel on the card).
+``predictor="lorenzo"`` (the cuSZ-L and FZ-GPU baselines) replaces the
+interp steps with the Lorenzo encode (the lorenzo3d CUDA kernel on the
+card) and decodes by prefix sums.
 
 The bytes are the JAX package's (``repro.core.compressor``): container v2
 (``CSZH2\\n``, binary header, section table) is written, v1 (``CSZH1\\n``,
@@ -21,17 +24,21 @@ stream without per-chunk offsets (containers written before the offset
 table existed) decodes on the host, recorded as
 ``last_telemetry["hf_decode"] == "host-legacy"``.
 
-This slice ports the main path: ``predictor="interp"``, ``eb_mode`` rel
-or abs, fixed pipelines of ported stages, ``verify`` off/sample/full,
-containers v1/v2. Other spec values parse and round-trip as strings and
-raise :class:`~repro_torch.core.errors.NotPortedError` when used, as do
+Ported so far: ``predictor="interp"`` and ``"lorenzo"``, ``eb_mode`` rel
+or abs, fixed pipelines of ported stages (cr, tp, fz, fzh, hf, lvl, none),
+``verify`` off/sample/full, containers v1/v2, and the presets
+``cusz_hi_cr``, ``cusz_hi_tp``, ``cusz_l``, ``cusz_i`` and ``fzgpu_like``.
+Other spec values parse and round-trip as strings and raise
+:class:`~repro_torch.core.errors.NotPortedError` when used, as do
 non-finite input and v3 containers.
 
 Tracing: each stage of the main path runs inside a
 ``torch.profiler.record_function`` span (``compress.blocks``,
-``compress.autotune``, ``compress.predict``, ``compress.scatter_reorder``,
+``compress.autotune``, ``compress.predict`` (also the Lorenzo encode),
+``compress.scatter_reorder``,
 ``<stage>.encode``, ``compress.verify``, ``<stage>.decode``,
-``decompress.blocks``, ``decompress.predict``, ``decompress.scatter``);
+``decompress.blocks``, ``decompress.predict`` (also the Lorenzo prefix
+sums), ``decompress.scatter``);
 a span records only while a profiler is active.
 
 Error-bound contract: ||x - decompress(compress(x))||_inf <= eb_abs, with
@@ -49,7 +56,9 @@ import torch
 from torch.profiler import record_function as span
 
 from ..kernels import interp3d as _interp
+from ..kernels import lorenzo3d as _lor
 from . import blocks as blk
+from . import lorenzo as lor
 from .autotune import DEFAULT_STRIDES, autotune, levels_for_stride
 from .errors import BoundViolationError, ContainerError, NotPortedError, SpecError
 from .lossless import pipelines
@@ -132,7 +141,7 @@ def _spec_format_value(key: str, value) -> str:
 class CompressorSpec:
     eb: float = 1e-3
     eb_mode: str = "rel"                  # "rel": eb * value range (paper); "abs"
-    predictor: str = "interp"             # interp (ported) | auto | lorenzo | offset1d
+    predictor: str = "interp"             # interp | lorenzo (ported) | auto | offset1d
     pipeline: str = "cr"                  # a registered pipeline, or "auto"
     anchor_stride: int = 16               # 16 = cuSZ-Hi; 8 = cuSZ-I layout
     autotune: bool = True
@@ -336,7 +345,7 @@ class Compressor:
 
     def _check_ported(self) -> None:
         sp = self.spec
-        if sp.predictor != "interp":
+        if sp.predictor not in ("interp", "lorenzo"):
             raise NotPortedError(f"predictor={sp.predictor!r}")
         if sp.eb_mode == "pw_rel":
             raise NotPortedError("eb_mode='pw_rel'")
@@ -369,6 +378,8 @@ class Compressor:
         if eb_abs == 0.0:  # constant (or empty) field: store the value verbatim
             v = np.float32(xt.reshape(-1)[0].item() if xt.numel() else 0)
             buf = _sections_pack(dict(base_hdr, mode="const"), [v.tobytes()])
+        elif self.spec.predictor == "lorenzo":
+            buf = self._compress_lorenzo(xt, eb_abs, base_hdr)
         else:
             buf = self._compress_interp(xt, eb_abs, base_hdr)
         return self._verify_repair(xt, buf, bound=eb_abs)
@@ -415,6 +426,19 @@ class Compressor:
                       n_outliers=int(oi.size), pipeline=sp.pipeline)
         return _sections_pack(header, [payload, anc.astype(np.float32, copy=False).tobytes(),
                                        oi.tobytes(), ov.astype(np.float32, copy=False).tobytes()])
+
+    def _compress_lorenzo(self, x: torch.Tensor, eb_abs: float, base_hdr: dict) -> bytes:
+        sp = self.spec
+        xb, spatial = _spatial_view(x)
+        with span("compress.predict"):
+            codes, oi, ov = _lor.lorenzo_encode(xb, 2.0 * eb_abs, len(spatial))
+        seq = codes.reshape(-1)
+        payload = pipelines.encode(seq if self._device_engine else seq.cpu().numpy(), sp.pipeline)
+        self._telemetry()["pipeline"] = sp.pipeline
+        header = dict(base_hdr, mode="lorenzo", batch=int(xb.shape[0]), spatial=list(spatial),
+                      n_outliers=int(oi.numel()), pipeline=sp.pipeline)
+        return _sections_pack(header, [payload, oi.cpu().numpy().astype(np.int64).tobytes(),
+                                       ov.cpu().numpy().astype(np.int32).tobytes()])
 
     # ------------------------------------------------ bound verification
     def _verify_check(self, x: torch.Tensor, buf: bytes):
@@ -514,7 +538,9 @@ class Compressor:
             return torch.full(shape, v, dtype=torch.float32, device=self.device)
         if mode == "interp":
             return self._decompress_interp(header, sections, shape, tel)
-        if mode in ("lorenzo", "offset1d", "pw_rel", "nfsafe", "nonfinite"):
+        if mode == "lorenzo":
+            return self._decompress_lorenzo(header, sections, shape, tel)
+        if mode in ("offset1d", "pw_rel", "nfsafe", "nonfinite"):
             raise NotPortedError(f"container mode {mode!r}")
         raise ContainerError(f"unknown container mode {mode!r}")
 
@@ -559,3 +585,48 @@ class Compressor:
             out = blk.scatter_blocks_batch_t(recon_b, batch, padded_shapes, blk.ANCHOR_STRIDE)
             return out[sl].reshape(shape)
 
+    def _decompress_lorenzo(self, header, sections, shape, tel: dict) -> torch.Tensor:
+        dev = self.device
+        spatial = tuple(int(s) for s in header["spatial"])
+        oi = np.frombuffer(sections[1], np.int64)
+        ov = np.frombuffer(sections[2], np.int32)
+        if self._device_engine:
+            seq = pipelines.decode(sections[0], device=dev, tel=tel)
+        else:
+            seq = torch.from_numpy(pipelines.decode(sections[0]).copy()).to(dev)
+        with span("decompress.predict"):
+            codes = seq.reshape((int(header["batch"]),) + spatial)
+            ofull = torch.zeros(codes.numel(), dtype=torch.int32, device=dev)
+            if oi.size:
+                ofull[torch.from_numpy(oi.copy()).to(dev)] = torch.from_numpy(ov.copy()).to(dev)
+            out = lor.lorenzo_decode(codes, ofull.view(codes.shape), 2.0 * float(header["eb_abs"]), len(spatial))
+        return out.reshape(shape)
+
+
+# ------------------------------------------------------------------ presets
+# The JAX package's presets; ``device`` is the Compressor's (the card unless "cpu").
+def cusz_hi_cr(eb=1e-3, *, device=None, **kw) -> Compressor:
+    return Compressor(CompressorSpec(eb=eb, pipeline="cr", **kw), device=device)
+
+
+def cusz_hi_tp(eb=1e-3, *, device=None, **kw) -> Compressor:
+    """Throughput mode: the CR predictor with the ``tp`` pipeline."""
+    return Compressor(CompressorSpec(eb=eb, pipeline="tp", **kw), device=device)
+
+
+def cusz_l(eb=1e-3, *, device=None) -> Compressor:
+    """cuSZ-L baseline: Lorenzo + Huffman."""
+    return Compressor(CompressorSpec(eb=eb, predictor="lorenzo", pipeline="hf"), device=device)
+
+
+def cusz_i(eb=1e-3, *, device=None) -> Compressor:
+    """cuSZ-I baseline: stride-8 anchors, 3 levels, 1D scheme, Huffman only."""
+    return Compressor(
+        CompressorSpec(eb=eb, predictor="interp", pipeline="hf", anchor_stride=8, autotune=False,
+                       splines=("cubic",) * 3, schemes=("1d",) * 3, reorder=False),
+        device=device)
+
+
+def fzgpu_like(eb=1e-3, *, device=None) -> Compressor:
+    """FZ-GPU-like baseline: Lorenzo + bitshuffle + de-redundancy."""
+    return Compressor(CompressorSpec(eb=eb, predictor="lorenzo", pipeline="fz"), device=device)

@@ -20,6 +20,8 @@ cross over.
   rows are a boolean-mask gather. Streams with the legacy hex-in-JSON
   header, which carries the bitmap's top level, decode the same way.
 * **tcms** — the bytewise sign-magnitude bijection.
+* **bit1** — the bit-plane shuffle and its inverse, the bitshuffle CUDA
+  kernels (repro_torch.kernels.bitshuffle) over 8192-byte blocks.
 
 The arithmetic that the host coder does in uint32 with wraparound runs
 here in int64 with explicit 32-bit masks: torch's uint32 lacks shifts.
@@ -34,8 +36,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ...kernels.bitshuffle import bitshuffle, bitunshuffle
 from ...kernels.histogram import histogram256
 from ..errors import ContainerError
+from . import bitshuffle as _bit
 from . import huffman as _hf
 from . import rre as _rre
 
@@ -267,3 +271,22 @@ def tcms_decode_device(payload: torch.Tensor, header: dict, tel: dict | None = N
     w[:, -1] ^= 0x80
     out = torch.where(neg[:, None], 255 - w, v)
     return out.reshape(-1)[:n]
+
+
+# --------------------------------------------------------------------- bit1
+def bit1_encode_device(data: torch.Tensor, block: int = _bit.BLOCK):
+    """Device BIT1; payload bytes == ``bitshuffle.bitshuffle_encode``'s (the
+    kernel pads the stream to whole blocks itself)."""
+    d = data.reshape(-1)
+    n = int(d.numel())
+    if n == 0:
+        return d.new_zeros(0), {"n": 0, "block": int(block)}
+    return bitshuffle(d, block), {"n": n, "block": int(block)}
+
+
+def bit1_decode_device(payload: torch.Tensor, header: dict, tel: dict | None = None):
+    """Device BIT1 decode; bytes == ``bitshuffle.bitshuffle_decode``'s."""
+    n, block = int(header["n"]), int(header["block"])
+    if n == 0:
+        return torch.zeros(0, dtype=torch.uint8, device=payload.device)
+    return bitunshuffle(payload.reshape(-1), block)[:n]

@@ -1,10 +1,11 @@
 """Composable lossless pipelines over the stage registry (paper §5.2, Fig. 7).
 
 A pipeline is a named sequence of registered stages. The port runs the
-pipelines whose stages it has: CR mode ``hf -> rre4 -> tcms8 -> rze1``,
-``hf`` alone, ``lvl`` and ``none``. The JAX package's pipelines that need
-``bit1`` or ``zstd`` (tp, fz, fzh, crz) are known by name, so a spec that
-names one still parses, but using one raises
+pipelines whose stages it has: CR mode ``hf -> rre4 -> tcms8 -> rze1``, TP
+mode ``tcms1 -> bit1 -> rre1``, the baselines' ``fz`` (``bit1 -> rre1``)
+and ``fzh`` (``bit1 -> rre1 -> hf``), ``hf`` alone, ``lvl`` and ``none``.
+The JAX package's ``crz`` needs ``zstd``: it is known by name, so a spec
+that names it still parses, but using it raises
 :class:`~repro_torch.core.errors.NotPortedError`.
 
 Device path: when ``encode`` receives a torch tensor, every stage runs its
@@ -16,7 +17,10 @@ read path. Either path gives the host path's bytes.
 Stream format (LLP2, shared with the JAX package): ``b"LLP2"``, a stage
 count, then one record per stage — flags byte (bit0 = store-through for a
 stage that would have expanded the stream), name, binary-packed header —
-then the final payload. Streams older than LLP2 (a u32 length-prefixed
+then the final payload. A stage whose payload plus header is no smaller
+than its input is stored through; bit1 and tcms1 never shrink a stream,
+so in tp, fz and fzh they run on encode and are always stored through, and
+no decode runs them. Streams older than LLP2 (a u32 length-prefixed
 JSON meta block) are detected by the missing magic and decode through the
 same registry.
 """
@@ -37,10 +41,7 @@ _MAGIC = b"LLP2"
 PIPELINES: dict[str, tuple] = {}  # name -> stage-name tuple (live registry)
 # the JAX package's pipelines that need a stage this port does not have yet
 UNPORTED_PIPELINES = {
-    "tp": ("tcms1", "bit1", "rre1"),
-    "fz": ("bit1", "rre1"),
     "crz": ("hf", "rre4", "tcms8", "rze1", "zstd"),
-    "fzh": ("bit1", "rre1", "hf"),
 }
 
 
@@ -72,8 +73,11 @@ def known_pipeline(name: str) -> bool:
 
 
 register_pipeline("cr", ("hf", "rre4", "tcms8", "rze1"))
+register_pipeline("tp", ("tcms1", "bit1", "rre1"))
 register_pipeline("hf", ("hf",))
 register_pipeline("none", ())
+register_pipeline("fz", ("bit1", "rre1"))
+register_pipeline("fzh", ("bit1", "rre1", "hf"))
 register_pipeline("lvl", ("rre4", "hf", "rze1"))
 
 

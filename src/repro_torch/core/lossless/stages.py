@@ -13,9 +13,8 @@ A *stage* is one lossless transform over a uint8 stream:
   on the tensor's device. ``tel`` is the caller's telemetry dict (or None),
   where a twin records a route that the stream's format decided.
 
-The JAX package's ``bit1`` and ``zstd`` stages are not ported yet: looking
-them up, or registering those names, raises
-:class:`~repro_torch.core.errors.NotPortedError`.
+The JAX package's ``zstd`` stage is not ported yet: looking it up, or
+registering that name, raises :class:`~repro_torch.core.errors.NotPortedError`.
 """
 from __future__ import annotations
 
@@ -27,11 +26,12 @@ from typing import Callable
 import numpy as np
 
 from ..errors import NotPortedError
+from . import bitshuffle as _bit
 from . import huffman as _hf
 from . import rre as _rre
 from . import tcms as _tcms
 
-UNPORTED_STAGES = ("bit1", "zstd")
+UNPORTED_STAGES = ("zstd",)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -112,6 +112,15 @@ def _unpack_rre(raw):
     return {"n": n, "nsym": nsym, "k": k}
 
 
+def _pack_bit(h):
+    return struct.pack("<QI", h["n"], h["block"])
+
+
+def _unpack_bit(raw):
+    n, block = struct.unpack_from("<QI", raw)
+    return {"n": n, "block": block}
+
+
 def _pack_tcms(h):
     return struct.pack("<QB", h["n"], h["k"])
 
@@ -134,6 +143,9 @@ def _engine(fn_name: str, **fixed):
 def _register_builtins() -> None:
     register_stage("hf", _hf.encode, _hf.decode, pack_header=_pack_hf, unpack_header=_unpack_hf,
                    encode_device=_engine("hf_encode_device"), decode_device=_engine("hf_decode_device"))
+    register_stage("bit1", _bit.bitshuffle_encode, _bit.bitshuffle_decode, pack_header=_pack_bit,
+                   unpack_header=_unpack_bit, encode_device=_engine("bit1_encode_device"),
+                   decode_device=_engine("bit1_decode_device"))
     for k in (1, 2, 4, 8):
         register_stage(f"rre{k}", (lambda d, k=k: _rre.rre_encode(d, k)), _rre.rre_decode,
                        pack_header=_pack_rre, unpack_header=_unpack_rre,

@@ -7,18 +7,23 @@ import). On the card:
 
 The plain torch predictor applies the banded taps in the kernels' order
 with every operation rounded on its own, so kernel and plain agree bit for
-bit; the histogram is exact.
+bit; the histogram, the bitshuffle and the Lorenzo encode are exact.
 """
 import numpy as np
 import pytest
 import torch
 
+import repro_torch.core as T
 from repro_torch.core import Compressor
+from repro_torch.core import lorenzo as plain_lorenzo
 from repro_torch.core import predictor as plain
+from repro_torch.core.lossless import bitshuffle as host_bit
 from repro_torch.core.autotune import levels_for_stride
 from repro_torch.core.stencils import build_steps
+from repro_torch.kernels import bitshuffle as bits
 from repro_torch.kernels import histogram as hist
 from repro_torch.kernels import interp3d as interp
+from repro_torch.kernels import lorenzo3d as lor
 from repro_torch.kernels import launch_counts, reset_launch_counts
 
 pytestmark = pytest.mark.cuda
@@ -70,6 +75,45 @@ def test_histogram_kernel_is_exact(cuda, n, offset):
     assert torch.equal(hist.histogram256(x), torch.bincount(x, minlength=256))
 
 
+@pytest.mark.parametrize("n", [0, 1, 31, 8191, 8192, 8193, 1_000_003])
+@pytest.mark.parametrize("offset", [0, 3])
+@pytest.mark.parametrize("block", [8192, 1024, 32])
+def test_bitshuffle_kernels_are_exact(cuda, n, offset, block):
+    g = torch.Generator(device=cuda).manual_seed(n + block)
+    d = torch.randint(0, 256, (n + offset,), generator=g, device=cuda, dtype=torch.uint8)
+    x = d[offset:]  # offset 3: an unaligned input
+    planes = bits.bitshuffle(x, block)
+    assert torch.equal(planes, bits.bitshuffle_plain(x, block))
+    assert planes.cpu().numpy().tobytes() == host_bit.bitshuffle_encode(x.cpu().numpy(), block)[0]
+    back = bits.bitunshuffle(planes, block)
+    assert torch.equal(back, bits.bitunshuffle_plain(planes, block))
+    assert torch.equal(back[:n], x) and not back[n:].any()
+
+
+def _lorenzo_field(shape, seed, device):
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(shape, generator=g, device=device).cumsum(-1)
+    x.view(-1)[::101] += 500.0  # forced outliers
+    return x.contiguous()
+
+
+@pytest.mark.parametrize("shape,nd", [((1000,), 1), ((37, 45), 2), ((33, 35, 70), 3), ((3, 9, 31, 40), 3),
+                                      ((5, 129), 1), ((2, 3, 17, 33), 2), ((64, 64, 64), 3), ((1, 1, 1), 3)])
+@pytest.mark.parametrize("twoeb", [0.02, 2e-6])
+def test_lorenzo_kernel_is_exact(cuda, shape, nd, twoeb):
+    x = _lorenzo_field(shape, sum(shape), cuda)
+    if twoeb < 1e-3:
+        x = x * 1e4  # |x| / 2eb beyond 2^31: saturation and wrapping deltas
+    codes, idx, vals = lor.lorenzo_encode(x, twoeb, nd)
+    pc, po, pfull = plain_lorenzo.lorenzo_encode(x, twoeb, nd)
+    pidx = torch.nonzero(po.reshape(-1)).reshape(-1)
+    assert torch.equal(codes, pc) and torch.equal(idx, pidx) and torch.equal(vals, pfull.reshape(-1)[pidx])
+    cc, ci, cv = lor.lorenzo_encode(x.cpu(), twoeb, nd)  # the plain version on the CPU agrees too
+    assert torch.equal(cc, codes.cpu()) and torch.equal(ci, idx.cpu()) and torch.equal(cv, vals.cpu())
+    if twoeb > 1e-3:
+        assert idx.numel() > 0
+
+
 def test_wrappers_check_their_inputs(cuda):
     steps = _steps(3, 16, "cubic", "md")
     with pytest.raises(TypeError):
@@ -88,21 +132,60 @@ def test_wrappers_check_their_inputs(cuda):
         hist.histogram256(torch.zeros(8, dtype=torch.int32, device=cuda))
     with pytest.raises(ValueError):
         hist.histogram256(torch.zeros(16, dtype=torch.uint8, device=cuda)[::2])
+    with pytest.raises(TypeError):
+        bits.bitshuffle(torch.zeros(8, dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError):
+        bits.bitunshuffle(torch.zeros(100, dtype=torch.uint8, device=cuda), 64)
+    with pytest.raises(ValueError):  # the kernels take blocks that are a multiple of 32 bytes
+        bits.bitshuffle(torch.zeros(100, dtype=torch.uint8, device=cuda), 24)
+    with pytest.raises(TypeError):
+        lor.lorenzo_encode(torch.zeros((4, 4, 4), dtype=torch.float64, device=cuda), 0.1, 3)
+    with pytest.raises(ValueError):
+        lor.lorenzo_encode(torch.zeros((4, 4, 8), device=cuda)[..., ::2], 0.1, 3)
+
+
+def _smooth48():
+    gr = np.linspace(0, 4 * np.pi, 48)
+    X, Y, Z = np.meshgrid(gr, gr, gr, indexing="ij")
+    return (np.sin(X) * np.cos(Y) * np.sin(Z) + 0.05 * np.cos(3 * X)).astype(np.float32)
 
 
 def test_card_and_cpu_write_the_same_container(cuda):
-    gr = np.linspace(0, 4 * np.pi, 48)
-    X, Y, Z = np.meshgrid(gr, gr, gr, indexing="ij")
-    x = (np.sin(X) * np.cos(Y) * np.sin(Z) + 0.05 * np.cos(3 * X)).astype(np.float32)
+    x = _smooth48()
     comp = Compressor()
     reset_launch_counts()
     buf = comp.compress(x)
     y = comp.decompress(buf, out="device")
     counts = launch_counts()
-    assert all(v > 0 for v in counts.values()), counts
+    assert all(counts[k] > 0 for k in ("interp_encode", "interp_decode", "histogram256")), counts
     assert comp.last_telemetry["fallbacks"] == []
     assert y.is_cuda and tuple(y.shape) == x.shape
     assert buf == Compressor(device="cpu").compress(x)
     eb = Compressor.inspect(buf)["eb_abs"]
     assert float(np.abs(Compressor(device="cpu").decompress(buf) - x).max()) <= eb * (1 + 1e-4)
+    assert np.array_equal(y.cpu().numpy(), Compressor(device="cpu").decompress(buf))
+
+
+# kernels each path launches; bit1 never shrinks a stream, so the shared
+# format stores it through and no decode reaches the bitunshuffle kernel
+PATH_KERNELS = {"cusz_hi_tp": ("interp_encode", "interp_decode", "bitshuffle"),
+                "fzgpu_like": ("lorenzo_encode", "bitshuffle"),
+                "cusz_l": ("lorenzo_encode", "histogram256")}
+
+
+@pytest.mark.parametrize("preset", list(PATH_KERNELS))
+def test_presets_write_the_same_container_on_card_and_cpu(cuda, preset):
+    x = _smooth48()
+    x[5, 6, 7] += 10.0  # an outlier
+    comp = getattr(T, preset)()
+    reset_launch_counts()
+    buf = comp.compress(x)
+    y = comp.decompress(buf, out="device")
+    counts = launch_counts()
+    assert all(counts[k] > 0 for k in PATH_KERNELS[preset]), counts
+    assert counts["bitunshuffle"] == 0, counts
+    assert comp.last_telemetry["fallbacks"] == []
+    assert buf == getattr(T, preset)(device="cpu").compress(x)
+    eb = Compressor.inspect(buf)["eb_abs"]
+    assert float(np.abs(y.cpu().numpy() - x).max()) <= eb * (1 + 1e-4)
     assert np.array_equal(y.cpu().numpy(), Compressor(device="cpu").decompress(buf))

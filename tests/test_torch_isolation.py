@@ -12,8 +12,10 @@ import torch
 
 from repro_torch.core import Compressor, CompressorSpec, NotPortedError
 from repro_torch.core.lossless import get_stage, pipelines, register_stage
+from repro_torch.kernels import bitshuffle as bits
 from repro_torch.kernels import histogram as hist
 from repro_torch.kernels import interp3d as interp
+from repro_torch.kernels import lorenzo3d as lor
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -59,6 +61,12 @@ def test_wrappers_raise_instead_of_falling_back():
     """Only a CPU tensor takes the plain version; another device raises."""
     with pytest.raises(ValueError):
         hist.histogram256(torch.empty(16, dtype=torch.uint8, device="meta"))
+    with pytest.raises(ValueError):
+        bits.bitshuffle(torch.empty(16, dtype=torch.uint8, device="meta"))
+    with pytest.raises(ValueError):
+        bits.bitunshuffle(torch.empty(8192, dtype=torch.uint8, device="meta"))
+    with pytest.raises(ValueError):
+        lor.lorenzo_encode(torch.empty((4, 4, 4), device="meta"), 0.1, 3)
     steps = CompressorSpec().levels
     from repro_torch.core.stencils import build_steps
 
@@ -72,8 +80,8 @@ def test_wrappers_raise_instead_of_falling_back():
 
 
 @pytest.mark.parametrize("spec", [
-    dict(predictor="lorenzo"), dict(predictor="auto"), dict(predictor="offset1d"),
-    dict(pipeline="tp"), dict(pipeline="auto"), dict(eb_mode="pw_rel"), dict(psnr_target=60.0),
+    dict(pipeline="crz"), dict(predictor="auto"), dict(predictor="offset1d"),
+    dict(predictor="lorenzo", pipeline="crz"), dict(pipeline="auto"), dict(eb_mode="pw_rel"), dict(psnr_target=60.0),
 ])
 def test_unported_spec_values_parse_then_raise_at_compress(spec):
     sp = CompressorSpec(**spec)
@@ -89,13 +97,13 @@ def test_unported_inputs_and_stages_raise():
         Compressor(device="cpu").compress(x)
     with pytest.raises(NotPortedError):
         Compressor(device="cpu").decompress(b"CSZH3\n" + bytes(32))
-    for name in ("bit1", "zstd"):
+    for name in ("zstd",):
         with pytest.raises(NotPortedError):
             get_stage(name)
         with pytest.raises(NotPortedError):
             register_stage(name, lambda d: d, lambda p, h: p)
     with pytest.raises(NotPortedError):
-        pipelines.register_pipeline("bit1-first", ("bit1", "rre1"))
+        pipelines.register_pipeline("zstd-tail", ("rre1", "zstd"))
     for name in pipelines.UNPORTED_PIPELINES:
         with pytest.raises(NotPortedError):
             pipelines.encode(np.zeros(4, np.uint8), name)
