@@ -8,8 +8,11 @@ Phases, in order; any failure exits non-zero:
   2. build the CUDA kernels from src/repro_torch/csrc (one nvcc per source,
      all started together);
   3. every kernel against its plain torch version on the card: interp encode
-     over spline x scheme x anchor stride on random and smooth blocks, interp
-     decode (bit-equal to the encoder's recon), histogram256 against
+     and decode bit for bit (torch.equal, and decode == the encoder's recon)
+     over rank 1-3 x anchor stride 16/8/4 x spline x scheme on random, smooth
+     and outlier-heavy blocks, at block counts 1, 131, 133, 4096 and 4097;
+     the interp kernels' registers, shared memory and spills are printed
+     from the ptxas report in phase 2; histogram256 against
      torch.bincount at ragged and unaligned lengths, bitshuffle and
      bitunshuffle (exact, and against the host bit1 stage) at ragged lengths
      up to 512^3, the Lorenzo encode (exact) on 1-D, 2-D, 3-D and batched
@@ -75,26 +78,6 @@ def say(*parts) -> None:
     print(*parts, flush=True)
 
 
-def nyx_like(side: int, seed: int, device):
-    """Lognormal spectral field, the 'nyx' recipe of the synthetic datasets:
-    white noise filtered by |k|^-2, normalized to [-1, 1], then exp(2 f)."""
-    import torch
-
-    g = torch.Generator(device=device).manual_seed(seed)
-    white = torch.randn((side,) * 3, generator=g, device=device, dtype=torch.float32)
-    spec = torch.fft.rfftn(white)
-    del white
-    k = torch.fft.fftfreq(side, device=device)
-    kz = torch.fft.rfftfreq(side, device=device)
-    k2 = k[:, None, None] ** 2 + k[None, :, None] ** 2 + kz[None, None, :] ** 2
-    filt = (k2 + 1e-6) ** (-2.0 / 2.0)
-    filt[0, 0, 0] = 0.0
-    out = torch.fft.irfftn(spec * filt, s=(side,) * 3)
-    del spec, filt, k2
-    out /= out.abs().max().clamp(min=1e-12)
-    return torch.exp(2.0 * out).contiguous()
-
-
 def smooth_big(side: int = 96):
     """The 96^3 smooth test field (sin/cos plus a Gaussian bump), numpy."""
     import numpy as np
@@ -104,19 +87,30 @@ def smooth_big(side: int = 96):
     return (np.sin(X) * np.cos(Y) * np.sin(Z) + 0.3 * np.exp(-((X - 6) ** 2 + (Y - 6) ** 2) / 8)).astype(np.float32)
 
 
-def cuda_ms(fn, iters: int) -> float:
-    """Mean device time of ``fn`` over ``iters`` runs after one warm-up (CUDA events)."""
-    import torch
+INTERP_SPLINES = ("linear", "cubic", "natural-cubic")
 
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+
+def interp_cases() -> list[tuple]:
+    """(ndim, kind, nb, stride, spline, scheme) of phase 3: every rank and
+    anchor stride the kernels are built for, the block counts that leave
+    a ragged tail for the persistent loop (1, 131, 133, 4097), and blocks
+    with a slab of outliers in every third block."""
+    cases = []
+    for kind in ("random", "smooth", "outliers"):
+        for stride in (16, 8, 4):
+            for spline in INTERP_SPLINES:
+                for scheme in ("md", "1d", "1d-210"):
+                    cases.append((3, kind, 4096, stride, spline, scheme))
+    for nd, schemes in ((2, ("md", "1d-10")), (1, ("md",))):
+        for kind in ("random", "outliers"):
+            for stride in (16, 8, 4):
+                for spline in INTERP_SPLINES:
+                    for scheme in schemes:
+                        cases.append((nd, kind, 4097, stride, spline, scheme))
+    for nd in (1, 2, 3):
+        for nb in (1, 131, 133, 4097):
+            cases.append((nd, "outliers", nb, 16, "cubic", "md"))
+    return cases
 
 
 def phase_kernels(device, seed: int) -> None:
@@ -130,50 +124,50 @@ def phase_kernels(device, seed: int) -> None:
 
     g = torch.Generator(device=device).manual_seed(seed + 1)
 
-    def blocks_of(kind: str, nb: int):
+    def blocks_of(kind: str, nb: int, nd: int):
+        shape = (nb,) + (17,) * nd
         if kind == "random":
-            return torch.randn((nb, 17, 17, 17), generator=g, device=device), 1e-2
+            return torch.randn(shape, generator=g, device=device), 1e-2
+        if kind == "outliers":  # |q| > 127 on a slab of every third block
+            f = torch.randn(shape, generator=g, device=device).cumsum(1)
+            f[::3, 3] += 100.0
+            return f, 1e-2
         c = torch.linspace(0, 1, 17, device=device)
-        ph = torch.rand((nb, 3), generator=g, device=device) * 6.0
-        f = (torch.sin(3 * c[None, :, None, None] + ph[:, 0, None, None, None])
-             * torch.cos(2 * c[None, None, :, None] + ph[:, 1, None, None, None])
-             + 0.5 * torch.sin(5 * c[None, None, None, :] + ph[:, 2, None, None, None]))
+        ph = torch.rand((nb, nd), generator=g, device=device) * 6.0
+        f = torch.zeros(shape, device=device)
+        for d in range(nd):
+            view = [nb] + [1] * nd
+            view[d + 1] = 17
+            f = f + torch.sin((3 + d) * c.view(view[1:])[None] + ph[:, d].view([nb] + [1] * nd))
         return f.contiguous(), 1e-3 * float(f.max() - f.min())
 
-    cases = []
-    for kind in ("random", "smooth"):
-        for stride in (16, 8):
-            for spline in ("linear", "cubic", "natural-cubic"):
-                for scheme in ("md", "1d", "1d-210"):
-                    cases.append((kind, 4096, stride, spline, scheme))
-        cases += [(kind, 1, 16, "cubic", "md"), (kind, 257, 8, "natural-cubic", "1d-210")]
-    worst_agree, worst_ratio = 1.0, 0.0
-    for kind, nb, stride, spline, scheme in cases:
-        blocks, eb = blocks_of(kind, nb)
+    worst_ratio, n_outliers = 0.0, 0
+    cases = interp_cases()
+    for nd, kind, nb, stride, spline, scheme in cases:
+        blocks, eb = blocks_of(kind, nb, nd)
         L = len(levels_for_stride(stride))
-        steps = build_steps(3, 17, levels_for_stride(stride), (spline,) * L, (scheme,) * L)
+        steps = build_steps(nd, 17, levels_for_stride(stride), (spline,) * L, (scheme,) * L)
         ck, rk = interp.compress_blocks(blocks, 2 * eb, steps, stride)
         cp, rp = plain.compress_blocks(blocks, 2 * eb, steps, stride)
         c_only, no_recon = interp.compress_blocks(blocks, 2 * eb, steps, stride, with_recon=False)
         torch.cuda.synchronize()
+        label = f"{nd}-D {kind} nb={nb} stride={stride} {spline}/{scheme}"
+        check(torch.equal(ck, cp) and torch.equal(rk, rp), f"interp encode != plain ({label})")
+        check(no_recon is None and torch.equal(c_only, ck), f"interp encode without recon: other codes ({label})")
         ok = ck == 0
-        agree = float((ck == cp).float().mean())
         err = (rk - blocks).abs()[~ok]
         ratio = float(err.max()) / eb if err.numel() else 0.0
-        label = f"{kind} nb={nb} stride={stride} {spline}/{scheme}"
-        check(agree >= MIN_AGREE, f"interp encode vs plain: codes agree {agree:.6f} < {MIN_AGREE} ({label})")
         check(ratio <= 1 + SLACK, f"interp encode bound: max err/eb {ratio:.6f} ({label})")
-        check(no_recon is None and torch.equal(c_only, ck), f"interp encode without recon: other codes ({label})")
         dec_in = plain.decode_inputs(blocks, ck, stride)
+        check(kind != "outliers" or dec_in[1].numel() > 0, f"no outliers in an outlier case ({label})")
         dk = interp.decompress_blocks(ck, *dec_in, 2 * eb, steps, stride)
-        dp = plain.decompress_blocks(ck, *dec_in, 2 * eb, steps, stride)
         check(torch.equal(dk, rk), f"interp decode does not reproduce the encoder's recon bit for bit ({label})")
-        derr = (dp - blocks).abs()[~ok]
-        dratio = float(derr.max()) / eb if derr.numel() else 0.0
-        check(dratio <= 1 + SLACK, f"plain decode of kernel codes: max err/eb {dratio:.6f} ({label})")
-        worst_agree, worst_ratio = min(worst_agree, agree), max(worst_ratio, ratio, dratio)
-    say(f"interp encode/decode vs plain: {len(cases)} cases, worst code agreement {worst_agree:.6f}, "
-        f"worst err/eb {worst_ratio:.6f}, decode == encoder recon bit for bit in every case")
+        check(torch.equal(plain.decompress_blocks(ck, *dec_in, 2 * eb, steps, stride), dk),
+              f"interp decode != plain decode ({label})")
+        worst_ratio, n_outliers = max(worst_ratio, ratio), n_outliers + int(dec_in[1].numel())
+    say(f"interp encode/decode == plain bit for bit in {len(cases)} cases (ndim 1-3, strides 16/8/4, "
+        f"nb 1..4097, {n_outliers} outliers in all), worst err/eb {worst_ratio:.6f}, "
+        f"decode == encoder recon in every case")
     sizes = (0, 1, 8191, 8193, 10**6 + 3, 512**3)
     for n in sizes:
         for skew in (False, True):
@@ -234,6 +228,46 @@ def phase_bits_lorenzo(device, g) -> None:
 
 def _is_span(name: str) -> bool:
     return name.startswith(("compress.", "decompress.")) or name.endswith((".encode", ".decode"))
+
+
+def ptxas_report(log: pathlib.Path) -> list[str]:
+    """Per kernel of an ``nvcc -Xptxas -v`` log: its registers, shared
+    memory and spills, one line each, the interp kernels named with their
+    (ndim, anchor stride) instantiation."""
+    import re
+
+    if not log.exists():
+        return []
+    out, name, spill = [], "?", ""
+    for line in log.read_text().splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            t = re.search(r"(interp_(?:en|de)code_kernel)ILi(\d)ELi(\d+)E", m.group(1))
+            name = f"{t.group(1)}<{t.group(2)},{t.group(3)}>" if t else m.group(1)
+        elif "spill" in line:
+            spill = line.strip()
+        elif "registers" in line:
+            out.append(f"{name}: {line.split(':', 1)[-1].strip()}; {spill}")
+    return out
+
+
+def interp_ops(tables: dict) -> tuple[int, int]:
+    """Operations of one 3-D block under the packed step tables: per target
+    point and used dim 2 per tap + 2 (blend); and the number of target
+    points (each then takes 5 operations to quantize or 2 to dequantize)."""
+    import numpy as np
+
+    pts = tables["pts"].astype(np.int64)
+    ops = 0
+    for k in range(tables["n_steps"]):
+        pk = pts[tables["step_off"][k]: tables["step_off"][k + 1]]
+        idx, dmask = pk & 0x1FFF, pk >> 13
+        taps = tables["meta"][tables["step_op"][k]] & 7
+        c = np.stack(np.unravel_index(idx, (17, 17, 17)))
+        for d in range(3):
+            on = (dmask >> d & 1) == 1
+            ops += int((2 * taps[c[d, on]] + 2).sum())
+    return ops, int(pts.size)
 
 
 def phase_profile(comp, x, label: str) -> dict:
@@ -419,6 +453,7 @@ def main() -> int:
         return 2
     import repro_torch.core as core
     from repro_torch.core import Compressor, CompressorSpec
+    from repro_torch.kernels.interp3d.bench import cuda_ms, nyx_like
     from repro_torch.core import predictor as plain
     from repro_torch.core.blocks import gather_blocks_batch_t, pad_field_batch_t
     from repro_torch.core.compressor import _sections_unpack
@@ -445,11 +480,8 @@ def main() -> int:
     secs = build()
     say(f"build: {time.perf_counter() - t0:.1f} s ({', '.join(f'{k} {v:.1f} s' for k, v in secs.items())})")
     for name in secs:
-        log = (build_dir() / f"{name}.log")
-        if log.exists():
-            for line in log.read_text().splitlines():
-                if "registers" in line or "spill" in line:
-                    say(f"  ptxas {name}: {line.strip()}")
+        for line in ptxas_report(build_dir() / f"{name}.log"):
+            say(f"  ptxas {name}: {line}")
 
     # 3. kernels vs plain
     phase_kernels(device, args.seed)
@@ -505,30 +537,17 @@ def main() -> int:
     ckr, rk = interp.compress_blocks(blocks, twoeb, steps, stride)
     cp, rp = plain.compress_blocks(blocks, twoeb, steps, stride)
     enc_err = float((rk - rp).abs().max())
-    enc_agree = float((ck == cp).float().mean())
-    del cp, rp
     check(torch.equal(ck, ckr), "main-path shapes: encode without recon gives other codes")
-    check(enc_agree >= MIN_AGREE, f"main-path shapes: codes agree kernel vs plain {enc_agree:.7f} < {MIN_AGREE}")
-    # where codes disagree both recons are within eb of the field, so at most 2 eb apart
-    check(enc_err <= twoeb * (1 + SLACK), f"main-path shapes: encoder recon kernel vs plain differs by {enc_err}")
+    check(torch.equal(ck, cp) and torch.equal(rk, rp), f"main-path shapes: encode != plain (recon by {enc_err})")
+    del cp, rp
     anchors, keys, vals = plain.decode_inputs(blocks, ck, stride)  # what the container gives the decoder
     dk = interp.decompress_blocks(ck, anchors, keys, vals, twoeb, steps, stride)
     dp = plain.decompress_blocks(ck, anchors, keys, vals, twoeb, steps, stride)
     dec_err = float((dk - dp).abs().max())
-    check(dec_err <= eb_abs * SLACK, f"main-path shapes: decode kernel vs plain differs by {dec_err}")
+    check(torch.equal(dk, dp), f"main-path shapes: decode kernel vs plain differs by {dec_err}")
     check(torch.equal(dk, rk), "main-path shapes: decode != encoder recon")
     del dk, dp, rk, ckr
-    tables = interp.pack_steps(steps, stride)
-    taps = tables["tapn"].astype(np.int64)
-    # operations per block, per target point: 2 per tap + 2 (blend) per used dim; then
-    # 5 to quantize (encode) or 2 to dequantize (decode)
-    ops_pred, n_pts = 0, 0
-    for k in range(tables["n_steps"]):
-        for rec in tables["pts"][tables["step_off"][k]: tables["step_off"][k + 1]]:
-            idx, dmask = int(rec) & 0xFFFF, int(rec) >> 16
-            c = (idx // 289, (idx // 17) % 17, idx % 17)
-            ops_pred += sum(2 * int(taps[k, c[d]]) + 2 for d in range(3) if dmask >> d & 1)
-            n_pts += 1
+    ops_pred, n_pts = interp_ops(interp.pack_steps(steps, stride))
     enc_ms = cuda_ms(lambda: interp.compress_blocks(blocks, twoeb, steps, stride, with_recon=False), 10)
     enc_plain = cuda_ms(lambda: plain.compress_blocks(blocks, twoeb, steps, stride), 2)
     dec_ms = cuda_ms(lambda: interp.decompress_blocks(ck, anchors, keys, vals, twoeb, steps, stride), 10)
@@ -568,8 +587,8 @@ def main() -> int:
     for k in kernels:
         k["path"] = "main"
     kernels += bits_lorenzo_times(x, bufs, results["paths"], bound)
-    say(f"main-path shapes: {nb} blocks of 17^3 (codes agree kernel vs plain {enc_agree:.7f}, "
-        f"{keys.numel()} outlier keys), hf input {seq.numel()} bytes")
+    say(f"main-path shapes: {nb} blocks of 17^3 (kernels == plain bit for bit, {keys.numel()} outlier keys), "
+        f"hf input {seq.numel()} bytes")
     results["kernels"] = kernels
     del blocks, ck, anchors, keys, vals, seq
 

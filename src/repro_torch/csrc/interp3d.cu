@@ -6,231 +6,507 @@
 // The decode kernel is the replay of repro.core.predictor.decompress_blocks,
 // which the TPU package runs as plain jnp.
 //
-// What bounds it on the H100: memory. Encode reads the f32 block and writes
-// the u8 codes (5 B per block point), plus the f32 recon (4 B more) when the
-// caller asks for it; decode reads the u8 codes, the block's few anchors and
-// its outliers, and writes the f32 recon (about 5 B per point). The
-// arithmetic is at most 12 multiply-adds per point, about one operation per
-// byte, far below the card's ~20 fp32 operations per byte. The TPU kernel
-// contracts (17,17) banded matrices on the MXU; here each point reads its at
-// most four taps per dim straight from shared memory.
+// What bounds it on the H100: memory, in principle. Encode reads the f32
+// block and writes the u8 codes (5 B per block point), plus the f32 recon
+// when the caller asks for it; decode reads the u8 codes, the block's few
+// anchors and its outliers, and writes the f32 recon (about 5 B per point).
+// The arithmetic is at most 12 multiply-adds per point, about one operation
+// per byte, far below the card's ~20 fp32 operations per byte. In practice
+// the per-point work is index math, table reads and barriers, so the design
+// keeps all of those on chip and cheap:
 //
-// Design: one CTA per block. The block's reconstruction (17^3 f32, 19.6 KB)
-// and its original values live in shared memory, loaded and stored with
-// coalesced sweeps; a CTA walks the steps in order, with a barrier after
-// each, and its threads stride over the step's target points. The host
-// packs per (steps, anchor stride) a point list (flat index | used-dims
-// mask << 16, one blend weight per point) and, per step, the banded row of
-// the spline operator (tap count, columns, coefficients). The decoder takes
-// the anchors per block, (16/every + 1)^ndim of them, and the outliers as
-// ascending keys block * 17^ndim + cell with their values; a code-0 point
-// finds its value by binary search, so no dense anchor or outlier grid is
-// ever built.
+// - The shape is a compile-time constant: both kernels are templates on the
+//   block rank (1-3) and the anchor stride (16, 8, 4), so every division of
+//   an index by 17 or a stride is a multiply by a constant.
+// - One f32 tile per block, updated in place. Every non-anchor point is the
+//   target of exactly one step, and every tap reads an anchor or the target
+//   of an earlier step (pack_steps checks both), so the encoder loads the
+//   original values and overwrites each target with its reconstruction, and
+//   the decoder places anchors and outliers first and fills the rest.
+// - The step tables live in shared memory, loaded once per CTA: per target
+//   point 2 B (flat index | used-dims mask << 13; the blend weight is
+//   1 / popcount(mask)), a step's points sorted by their mask so that a
+//   warp's threads take the same dims; per level and operator row one
+//   32-bit word (tap count, columns and pattern), and per level and pattern
+//   (distinct row, at most 4) one float4 of coefficients, so a warp's
+//   coefficient loads touch few distinct words.
+// - Persistent CTAs: the host launches as many CTAs as are resident at once
+//   and each walks a contiguous run of blocks, so the tables are loaded once
+//   per CTA and the decoder finds each block's outliers with a cursor that
+//   only moves forward (one binary search per CTA).
+// - A 3-D block takes the whole CTA (256 threads); its coarse steps (at
+//   most 64 targets each) run in warp 0 with __syncwarp, the fine steps
+//   across the CTA with __syncthreads. 2-D and 1-D blocks take a warp and
+//   8 lanes, so 8 or 32 blocks share a CTA and every step is warp-synchronous.
 //
-// Encode and decode call the same __device__ predict() with the same
-// operation order, and round every product and sum on its own
-// (__fmul_rn / __fadd_rn: no FMA contraction), so on the card
-// decode(encode(x)) reproduces the encoder's recon bit for bit.
+// Encode and decode run the same predict() with the same operation order
+// and round every product and sum on its own (__fmul_rn / __fadd_rn: no FMA
+// contraction), so on the card decode(encode(x)) reproduces the encoder's
+// recon bit for bit, and both equal repro_torch.core.predictor's plain
+// versions, which apply the taps in this order.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int kB = 17;
-constexpr int kMaxV = kB * kB * kB;  // 4913 points in a 3-D block
 constexpr int kThreads = 256;
 constexpr float kRadius = 127.0f;
 constexpr int kCenter = 128;
-constexpr int kTaps = 4;
+constexpr int kPatterns = 4;  // distinct rows of one level's operator
 
-struct Tables {
-  const int32_t* pts;       // per target point: flat index | used-dims mask << 16
-  const float* wts;         // per target point: the blend weight shared by its used dims
-  const int32_t* step_off;  // n_steps + 1 offsets into pts/wts
-  const uint8_t* tapn;      // [n_steps][kB] taps in row c of the step's operator
-  const int8_t* tapj;       // [n_steps][kB][kTaps] tap columns, ascending
-  const float* tapw;        // [n_steps][kB][kTaps] tap coefficients
-  int n_steps;
+__host__ __device__ constexpr int ipow(int b, int e) { return e == 0 ? 1 : b * ipow(b, e - 1); }
+__host__ __device__ constexpr int ilog2(int v) { return v <= 1 ? 0 : 1 + ilog2(v / 2); }
+__host__ __device__ constexpr int round_up(int v, int m) { return (v + m - 1) / m * m; }
+
+// Everything the kernels know about one (rank, anchor stride) pair.
+template <int NDIM, int EVERY>
+struct Shape {
+  static constexpr int V = ipow(kB, NDIM);                  // points per block
+  static constexpr int A = (kB - 1) / EVERY + 1;            // anchors per dim
+  static constexpr int NA = ipow(A, NDIM);                  // anchors per block
+  static constexpr int NP = V - NA;                         // target points per block
+  static constexpr int L = ilog2(EVERY);                    // levels (operators)
+  static constexpr int MAXS = NDIM * L;                     // steps at most
+  static constexpr int TPB = NDIM == 3 ? 256 : (NDIM == 2 ? 32 : 8);  // threads per block
+  static constexpr int G = kThreads / TPB;                  // blocks per CTA
+  static constexpr int GV = G * V;                          // tile points per CTA
+  // the table image, int32 words in this order (ops.py packs the same):
+  // coef [L][kPatterns][4] f32, meta [L][kB], step_off [MAXS + 1],
+  // step_op [MAXS], pts [NP rounded up to even] u16
+  static constexpr int kCoefWords = L * kPatterns * 4;
+  static constexpr int kMetaWords = L * kB;
+  static constexpr int kPtsWords = (NP + 1) / 2;
+  static constexpr int kTableWords = kCoefWords + kMetaWords + (MAXS + 1) + MAXS + kPtsWords;
+  static constexpr int kTableBytes = round_up(kTableWords * 4, 16);
+  static constexpr int kTileBytes = round_up(GV * 4, 16);
+  static constexpr int kCodeBytes = round_up(GV + 8, 16);  // + room for a 4-byte alignment head
 };
 
-__device__ __forceinline__ int volume(int ndim) {
-  return ndim == 3 ? kB * kB * kB : (ndim == 2 ? kB * kB : kB);
+template <int NDIM, int EVERY>
+struct Tables {
+  using S = Shape<NDIM, EVERY>;
+  const float4* coef;  // [L][kPatterns]
+  const int* meta;     // [L][kB]: tap count | column t << (3 + 5 t) | pattern << 23
+  const int* step_off;
+  const int* step_op;
+  const uint16_t* pts;
+
+  __device__ explicit Tables(const unsigned char* base)
+      : coef(reinterpret_cast<const float4*>(base)),
+        meta(reinterpret_cast<const int*>(base) + S::kCoefWords),
+        step_off(meta + S::kMetaWords),
+        step_op(step_off + S::MAXS + 1),
+        pts(reinterpret_cast<const uint16_t*>(step_op + S::MAXS)) {}
+};
+
+// Copies the table image into shared memory (every thread takes a share).
+template <int NDIM, int EVERY>
+__device__ __forceinline__ void load_tables(unsigned char* smem, const int* __restrict__ image) {
+  int* dst = reinterpret_cast<int*>(smem);
+  for (int i = threadIdx.x; i < Shape<NDIM, EVERY>::kTableWords; i += kThreads) dst[i] = image[i];
 }
 
-__device__ __forceinline__ bool is_anchor(int idx, int ndim, int every) {
-  for (int d = 0; d < ndim; ++d) {
-    if ((idx % kB) % every) return false;
-    idx /= kB;
+// 4-byte asynchronous copies from device memory into shared memory.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
+
+// pred = sum over used dims d (ascending) of w * (sum over taps of coef * tile[tap]),
+// w = 1 / (number of used dims), each product and sum rounded to fp32 on its own.
+template <int NDIM>
+__device__ __forceinline__ float predict(const float* tile, int idx, int dmask, const float4* coef,
+                                         const int* meta) {
+  int c[NDIM];
+  int rem = idx;
+#pragma unroll
+  for (int d = 0; d < NDIM; ++d) {
+    const int sd = ipow(kB, NDIM - 1 - d);
+    c[d] = rem / sd;
+    rem -= c[d] * sd;
   }
-  return true;
-}
-
-// Row-major slot of anchor point idx among the block's (16/every + 1)^ndim anchors.
-__device__ __forceinline__ int anchor_slot(int idx, int ndim, int every) {
-  const int na = (kB - 1) / every + 1;
-  int slot = 0, scale = 1;
-  for (int d = 0; d < ndim; ++d) {  // last dim first
-    slot += ((idx % kB) / every) * scale;
-    scale *= na;
-    idx /= kB;
+  const int used = __popc(dmask);
+  const float w = used == 1 ? 1.0f : (used == 2 ? 0.5f : 0x1.555556p-2f);  // fp32(1/3), as the tables hold
+  float pred = 0.0f;
+#pragma unroll
+  for (int d = 0; d < NDIM; ++d) {
+    if (dmask & (1 << d)) {
+      const int sd = ipow(kB, NDIM - 1 - d);
+      const int m = meta[c[d]];
+      const float4 k = coef[(m >> 23) & (kPatterns - 1)];
+      const int n = m & 7;
+      const float* row = tile + (idx - c[d] * sd);
+      float acc = 0.0f;
+      if (n > 0) acc = __fadd_rn(acc, __fmul_rn(k.x, row[((m >> 3) & 31) * sd]));
+      if (n > 1) acc = __fadd_rn(acc, __fmul_rn(k.y, row[((m >> 8) & 31) * sd]));
+      if (n > 2) acc = __fadd_rn(acc, __fmul_rn(k.z, row[((m >> 13) & 31) * sd]));
+      if (n > 3) acc = __fadd_rn(acc, __fmul_rn(k.w, row[((m >> 18) & 31) * sd]));
+      pred = __fadd_rn(pred, __fmul_rn(w, acc));
+    }
   }
-  return slot;
+  return pred;
 }
 
-// The value stored for the outlier at `key` (ascending keys), 0 if the
-// container holds none: the value a dense outlier grid would give.
-__device__ __forceinline__ float outlier_value(const long long* keys, const float* vals, long long n,
-                                               long long key) {
+// One step over one block's tile, points strided over `lanes` threads.
+// Encode: quantize against the original value in the tile and write the
+// reconstruction over it. Decode: replay the code; a code-0 point keeps the
+// outlier value (or 0) placed before the first step.
+template <int NDIM, int EVERY, bool ENCODE>
+__device__ __forceinline__ void run_step(const Tables<NDIM, EVERY>& tb, int k, int lane, int lanes, float* tile,
+                                         uint8_t* code, float twoeb, float inv2eb) {
+  const int op = tb.step_op[k];
+  const float4* coef = tb.coef + op * kPatterns;
+  const int* meta = tb.meta + op * kB;
+  const int end = tb.step_off[k + 1];
+  for (int p = tb.step_off[k] + lane; p < end; p += lanes) {
+    const int pt = tb.pts[p];
+    const int idx = pt & 0x1FFF;
+    if constexpr (ENCODE) {
+      const float pred = predict<NDIM>(tile, idx, pt >> 13, coef, meta);
+      const float o = tile[idx];
+      // quantize_pred: q = rint((orig - pred) * inv2eb); outlier iff |q| > 127
+      const float q = rintf(__fmul_rn(__fsub_rn(o, pred), inv2eb));
+      const bool out = fabsf(q) > kRadius;
+      tile[idx] = out ? o : __fadd_rn(pred, __fmul_rn(q, twoeb));
+      code[idx] = out ? 0 : (uint8_t)((int)q + kCenter);
+    } else {
+      const int c = code[idx];
+      if (c != 0) {
+        const float pred = predict<NDIM>(tile, idx, pt >> 13, coef, meta);
+        tile[idx] = __fadd_rn(pred, __fmul_rn((float)(c - kCenter), twoeb));
+      }
+    }
+  }
+}
+
+// All steps over the CTA's tile; returns after a CTA barrier, so the tile
+// is complete for every thread.
+template <int NDIM, int EVERY, bool ENCODE>
+__device__ __forceinline__ void run_steps(const Tables<NDIM, EVERY>& tb, int n_steps, int n_warp_steps,
+                                          float* tile, uint8_t* code, float twoeb, float inv2eb) {
+  using S = Shape<NDIM, EVERY>;
+  if constexpr (S::TPB <= 32) {
+    // a block's threads share a warp: each block owns V points of the tile
+    const int slot = threadIdx.x / S::TPB, lane = threadIdx.x % S::TPB;
+    float* t = tile + slot * S::V;
+    uint8_t* c = code + slot * S::V;
+    for (int k = 0; k < n_steps; ++k) {
+      run_step<NDIM, EVERY, ENCODE>(tb, k, lane, S::TPB, t, c, twoeb, inv2eb);
+      __syncwarp();
+    }
+    __syncthreads();
+  } else {
+    int k = 0;
+    if (threadIdx.x < 32) {
+      for (; k < n_warp_steps; ++k) {
+        run_step<NDIM, EVERY, ENCODE>(tb, k, threadIdx.x, 32, tile, code, twoeb, inv2eb);
+        __syncwarp();
+      }
+    }
+    k = n_warp_steps;
+    if (k > 0) __syncthreads();
+    for (; k < n_steps; ++k) {
+      run_step<NDIM, EVERY, ENCODE>(tb, k, threadIdx.x, kThreads, tile, code, twoeb, inv2eb);
+      __syncthreads();
+    }
+  }
+}
+
+// The CTA's contiguous run of groups (G blocks each) out of ng.
+__device__ __forceinline__ void group_range(long long ng, long long* begin, long long* end) {
+  *begin = (long long)blockIdx.x * ng / gridDim.x;
+  *end = ((long long)blockIdx.x + 1) * ng / gridDim.x;
+}
+
+template <int NDIM, int EVERY, bool PF>
+__global__ void __launch_bounds__(kThreads)
+interp_encode_kernel(const float* __restrict__ blocks, uint8_t* __restrict__ codes, float* __restrict__ recon,
+                     long long nb, float twoeb, float inv2eb, const int* __restrict__ image, int n_steps,
+                     int n_warp_steps) {
+  using S = Shape<NDIM, EVERY>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  load_tables<NDIM, EVERY>(smem, image);
+  const Tables<NDIM, EVERY> tb(smem);
+  float* tiles = reinterpret_cast<float*>(smem + S::kTableBytes);
+  uint8_t* code = smem + S::kTableBytes + (PF ? 2 : 1) * S::kTileBytes;
+  // anchors keep the center code; every other point gets its code from its step
+  for (int i = threadIdx.x; i < S::GV; i += kThreads) code[i] = kCenter;
+  long long g0, g1;
+  group_range((nb + S::G - 1) / S::G, &g0, &g1);
+  const long long total = nb * S::V;
+  // each thread loads and later stores the same tile points, so the store of
+  // one block and the load of the next need no barrier between them
+  auto fetch = [&](float* tile, long long base) {
+    for (int i = threadIdx.x; i < S::GV; i += kThreads) {
+      if (base + i < total) cp_async4(tile + i, blocks + base + i); else tile[i] = 0.0f;
+    }
+    cp_async_commit();
+  };
+  if constexpr (PF) fetch(tiles, g0 * S::GV);
+  int buf = 0;
+  for (long long g = g0; g < g1; ++g, buf ^= 1) {
+    const long long base = g * S::GV;
+    float* tile = tiles + (PF ? buf * (S::kTileBytes / 4) : 0);
+    if constexpr (PF) {
+      cp_async_wait_all();
+      __syncthreads();
+      if (g + 1 < g1) fetch(tiles + (buf ^ 1) * (S::kTileBytes / 4), base + S::GV);
+    } else {
+#pragma unroll 4
+      for (int i = threadIdx.x; i < S::GV; i += kThreads) tile[i] = base + i < total ? blocks[base + i] : 0.0f;
+      __syncthreads();
+    }
+    run_steps<NDIM, EVERY, true>(tb, n_steps, n_warp_steps, tile, code, twoeb, inv2eb);
+    for (int i = threadIdx.x; i < S::GV; i += kThreads) {
+      if (base + i < total) {
+        codes[base + i] = code[i];
+        if (recon != nullptr) recon[base + i] = tile[i];
+      }
+    }
+  }
+}
+
+// The first index of the ascending keys[0, n) at or after key.
+__device__ long long lower_bound(const long long* keys, long long n, long long key) {
   long long lo = 0, hi = n;
   while (lo < hi) {
     const long long mid = (lo + hi) >> 1;
     if (keys[mid] < key) lo = mid + 1; else hi = mid;
   }
-  return (lo < n && keys[lo] == key) ? vals[lo] : 0.0f;
+  return lo;
 }
 
-// pred = sum over used dims d (ascending) of w * (sum over taps of coef * rec[tap]),
-// each product and sum rounded to fp32 on its own.
-__device__ __forceinline__ float predict(const float* rec, int idx, int dmask, float w,
-                                         const uint8_t* tn, const int8_t* tj, const float* tw,
-                                         int ndim) {
-  float pred = 0.0f;
-  int sd = ndim == 3 ? kB * kB : (ndim == 2 ? kB : 1);
-  int rem = idx;
-  for (int d = 0; d < ndim; ++d) {
-    const int c = rem / sd;
-    rem -= c * sd;
-    if (dmask & (1 << d)) {
-      const int base = idx - c * sd;
-      float acc = 0.0f;
-      const int n = tn[c];
-      for (int t = 0; t < n; ++t) {
-        acc = __fadd_rn(acc, __fmul_rn(tw[c * kTaps + t], rec[base + tj[c * kTaps + t] * sd]));
-      }
-      pred = __fadd_rn(pred, __fmul_rn(w, acc));
-    }
-    sd /= kB;
+template <int NDIM, int EVERY>
+__device__ __forceinline__ bool is_anchor(int idx) {
+#pragma unroll
+  for (int d = 0; d < NDIM; ++d) {
+    if ((idx % kB) % EVERY) return false;
+    idx /= kB;
   }
-  return pred;
+  return true;
 }
 
-__global__ void __launch_bounds__(kThreads)
-interp_encode_kernel(const float* __restrict__ blocks, uint8_t* __restrict__ codes,
-                     float* __restrict__ recon, int ndim, int every, float twoeb, float inv2eb,
-                     Tables tb) {
-  __shared__ float orig_s[kMaxV];
-  __shared__ float rec_s[kMaxV];
-  __shared__ uint8_t code_s[kMaxV];
-  const int V = volume(ndim);
-  const size_t base = (size_t)blockIdx.x * V;
-  for (int i = threadIdx.x; i < V; i += blockDim.x) {
-    const float v = blocks[base + i];
-    orig_s[i] = v;
-    rec_s[i] = is_anchor(i, ndim, every) ? v : 0.0f;
-    code_s[i] = kCenter;
+// Flat index in its block of anchor `slot` (row-major over A^NDIM anchors).
+template <int NDIM, int EVERY>
+__device__ __forceinline__ int anchor_index(int slot) {
+  using S = Shape<NDIM, EVERY>;
+  int idx = 0;
+#pragma unroll
+  for (int d = NDIM - 1; d >= 0; --d) {
+    idx += (slot % S::A) * EVERY * ipow(kB, NDIM - 1 - d);
+    slot /= S::A;
   }
-  __syncthreads();
-  for (int k = 0; k < tb.n_steps; ++k) {
-    const uint8_t* tn = tb.tapn + k * kB;
-    const int8_t* tj = tb.tapj + k * kB * kTaps;
-    const float* tw = tb.tapw + k * kB * kTaps;
-    const int end = tb.step_off[k + 1];
-    for (int p = tb.step_off[k] + threadIdx.x; p < end; p += blockDim.x) {
-      const int rec = tb.pts[p];
-      const int idx = rec & 0xFFFF;
-      const float pred = predict(rec_s, idx, rec >> 16, tb.wts[p], tn, tj, tw, ndim);
-      const float o = orig_s[idx];
-      // quantize_pred: q = rint((orig - pred) * inv2eb); outlier iff |q| > 127
-      const float q = rintf(__fmul_rn(__fsub_rn(o, pred), inv2eb));
-      const bool out = fabsf(q) > kRadius;
-      rec_s[idx] = out ? o : __fadd_rn(pred, __fmul_rn(q, twoeb));
-      code_s[idx] = out ? 0 : (uint8_t)((int)q + kCenter);
-    }
-    __syncthreads();
-  }
-  for (int i = threadIdx.x; i < V; i += blockDim.x) codes[base + i] = code_s[i];
-  if (recon != nullptr) {
-    for (int i = threadIdx.x; i < V; i += blockDim.x) recon[base + i] = rec_s[i];
-  }
+  return idx;
 }
 
+template <int NDIM, int EVERY, bool PF>
 __global__ void __launch_bounds__(kThreads)
 interp_decode_kernel(const uint8_t* __restrict__ codes, const float* __restrict__ anchors,
-                     const long long* __restrict__ okeys, const float* __restrict__ ovals,
-                     long long n_out, float* __restrict__ recon, int ndim, int every, float twoeb,
-                     Tables tb) {
-  __shared__ float rec_s[kMaxV];
-  __shared__ uint8_t code_s[kMaxV];
-  const int V = volume(ndim);
-  const size_t base = (size_t)blockIdx.x * V;
-  int n_anchor = 1;
-  for (int d = 0; d < ndim; ++d) n_anchor *= (kB - 1) / every + 1;
-  const float* anc = anchors + (size_t)blockIdx.x * n_anchor;
-  for (int i = threadIdx.x; i < V; i += blockDim.x) {
-    code_s[i] = codes[base + i];
-    rec_s[i] = is_anchor(i, ndim, every) ? anc[anchor_slot(i, ndim, every)] : 0.0f;
-  }
-  __syncthreads();
-  for (int k = 0; k < tb.n_steps; ++k) {
-    const uint8_t* tn = tb.tapn + k * kB;
-    const int8_t* tj = tb.tapj + k * kB * kTaps;
-    const float* tw = tb.tapw + k * kB * kTaps;
-    const int end = tb.step_off[k + 1];
-    for (int p = tb.step_off[k] + threadIdx.x; p < end; p += blockDim.x) {
-      const int rec = tb.pts[p];
-      const int idx = rec & 0xFFFF;
-      const float pred = predict(rec_s, idx, rec >> 16, tb.wts[p], tn, tj, tw, ndim);
-      const int c = code_s[idx];
-      rec_s[idx] = c == 0 ? outlier_value(okeys, ovals, n_out, (long long)(base + idx))
-                          : __fadd_rn(pred, __fmul_rn((float)(c - kCenter), twoeb));
+                     const long long* __restrict__ okeys, const float* __restrict__ ovals, long long n_out,
+                     float* __restrict__ recon, long long nb, float twoeb, const int* __restrict__ image,
+                     int n_steps, int n_warp_steps) {
+  using S = Shape<NDIM, EVERY>;
+  constexpr int kAnc = round_up(S::G * S::NA * 4, 16);
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ long long cursor0;
+  load_tables<NDIM, EVERY>(smem, image);
+  const Tables<NDIM, EVERY> tb(smem);
+  float* tile = reinterpret_cast<float*>(smem + S::kTableBytes);
+  uint8_t* codebufs = smem + S::kTableBytes + S::kTileBytes;
+  float* ancbufs = reinterpret_cast<float*>(codebufs + (PF ? 2 : 1) * S::kCodeBytes);
+  long long g0, g1;
+  group_range((nb + S::G - 1) / S::G, &g0, &g1);
+  const long long total = nb * S::V;
+  // PF: the group's codes as aligned 4-byte words, the first `head` bytes
+  // before the group's start; partial words are copied byte by byte
+  auto head_of = [&](long long base) { return (int)((uintptr_t)(codes + base) & 3); };
+  auto fetch = [&](int b, long long g) {
+    const long long base = g * S::GV;
+    const int head = head_of(base);
+    const uint8_t* src = codes + base - head;
+    uint8_t* dst = codebufs + b * S::kCodeBytes;
+    const int nbytes = head + (int)(total - base < S::GV ? total - base : S::GV);
+    for (int w = threadIdx.x; w * 4 < nbytes; w += kThreads) {
+      if ((w == 0 && head) || w * 4 + 4 > nbytes) {
+        for (int j = w * 4 > head ? w * 4 : head; j < w * 4 + 4 && j < nbytes; ++j) dst[j] = src[j];
+      } else {
+        cp_async4(dst + w * 4, src + w * 4);
+      }
     }
+    float* anc = ancbufs + b * (kAnc / 4);
+    for (int j = threadIdx.x; j < S::G * S::NA; j += kThreads) {
+      const long long blk = g * S::G + j / S::NA;
+      if (blk < nb) cp_async4(anc + j, anchors + blk * S::NA + j % S::NA);
+    }
+    cp_async_commit();
+  };
+  if (threadIdx.x == 0) cursor0 = lower_bound(okeys, n_out, g0 * S::GV);
+  if constexpr (PF) fetch(0, g0);
+  __syncthreads();
+  long long cur = cursor0;  // the first outlier not yet placed; keys ascend
+  int buf = 0;
+  for (long long g = g0; g < g1; ++g, buf ^= 1) {
+    const long long base = g * S::GV;
+    const long long key_end = base + S::GV < total ? base + S::GV : total;
+    uint8_t* code = codebufs + (PF ? buf * S::kCodeBytes + head_of(base) : 0);
+    const float* anc = ancbufs + (PF ? buf * (kAnc / 4) : 0);
+    if constexpr (PF) {
+      cp_async_wait_all();
+      for (int i = threadIdx.x; i < S::GV; i += kThreads) tile[i] = 0.0f;
+    } else {
+#pragma unroll 4
+      for (int i = threadIdx.x; i < S::GV; i += kThreads) {
+        code[i] = base + i < total ? codes[base + i] : kCenter;
+        tile[i] = 0.0f;  // a code-0 point without a stored value replays as 0
+      }
+    }
+    long long k = cur + threadIdx.x;
+    long long key = k < n_out ? okeys[k] : key_end;
     __syncthreads();
+    if constexpr (PF) {
+      if (g + 1 < g1) fetch(buf ^ 1, g + 1);
+    }
+    for (int j = threadIdx.x; j < S::G * S::NA; j += kThreads) {
+      const long long b = g * S::G + j / S::NA;
+      if (b < nb)
+        tile[(j / S::NA) * S::V + anchor_index<NDIM, EVERY>(j % S::NA)] = PF ? anc[j] : anchors[b * S::NA + j % S::NA];
+    }
+    // this group's outliers, in rounds of kThreads keys; the last round is short
+    for (;;) {
+      const bool mine = key < key_end;
+      if (mine) {  // a code-0 point takes its value; anchors keep theirs, as in the plain replay
+        const int at = (int)(key - base);
+        if (code[at] == 0 && !is_anchor<NDIM, EVERY>(at % S::V)) tile[at] = ovals[k];
+      }
+      const int n = __syncthreads_count(mine);
+      cur += n;
+      if (n < kThreads) break;
+      k = cur + threadIdx.x;
+      key = k < n_out ? okeys[k] : key_end;
+    }
+    run_steps<NDIM, EVERY, false>(tb, n_steps, n_warp_steps, tile, code, twoeb, 0.0f);
+    for (int i = threadIdx.x; i < S::GV; i += kThreads)
+      if (base + i < total) recon[base + i] = tile[i];
   }
-  for (int i = threadIdx.x; i < V; i += blockDim.x) recon[base + i] = rec_s[i];
 }
 
-Tables make_tables(const int32_t* pts, const float* wts, const int32_t* step_off, int n_steps,
-                   const uint8_t* tapn, const int8_t* tapj, const float* tapw) {
-  Tables tb;
-  tb.pts = pts;
-  tb.wts = wts;
-  tb.step_off = step_off;
-  tb.tapn = tapn;
-  tb.tapj = tapj;
-  tb.tapw = tapw;
-  tb.n_steps = n_steps;
-  return tb;
+// Dynamic shared memory of the two kernels.
+template <int NDIM, int EVERY, bool PF>
+constexpr int encode_smem() {
+  using S = Shape<NDIM, EVERY>;
+  return S::kTableBytes + (PF ? 2 : 1) * S::kTileBytes + S::kCodeBytes;
+}
+template <int NDIM, int EVERY, bool PF>
+constexpr int decode_smem() {
+  using S = Shape<NDIM, EVERY>;
+  return S::kTableBytes + S::kTileBytes + (PF ? 2 : 1) * S::kCodeBytes + (PF ? 2 * round_up(S::G * S::NA * 4, 16) : 0);
+}
+
+// Launches `kern` with one CTA per resident slot (at most one per group).
+template <typename Kernel, typename... Args>
+int launch_persistent(Kernel kern, int smem, long long groups, cudaStream_t stream, Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) return (int)err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads, smem)) != cudaSuccess)
+    return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const long long slots = (long long)per_sm * sms;
+  const unsigned grid = (unsigned)(groups < slots ? groups : slots);
+  kern<<<grid, kThreads, smem, stream>>>(args...);
+  return (int)cudaGetLastError();
+}
+
+template <int NDIM, int EVERY>
+int encode(const float* blocks, uint8_t* codes, float* recon, long long nb, float twoeb, float inv2eb,
+           const int* image, int n_steps, int n_warp_steps, int prefetch, cudaStream_t stream) {
+  using S = Shape<NDIM, EVERY>;
+  const long long groups = (nb + S::G - 1) / S::G;
+  if (prefetch)
+    return launch_persistent(interp_encode_kernel<NDIM, EVERY, true>, encode_smem<NDIM, EVERY, true>(), groups,
+                             stream, blocks, codes, recon, nb, twoeb, inv2eb, image, n_steps, n_warp_steps);
+  return launch_persistent(interp_encode_kernel<NDIM, EVERY, false>, encode_smem<NDIM, EVERY, false>(), groups,
+                           stream, blocks, codes, recon, nb, twoeb, inv2eb, image, n_steps, n_warp_steps);
+}
+
+template <int NDIM, int EVERY>
+int decode(const uint8_t* codes, const float* anchors, const long long* okeys, const float* ovals, long long n_out,
+           float* recon, long long nb, float twoeb, const int* image, int n_steps, int n_warp_steps, int prefetch,
+           cudaStream_t stream) {
+  using S = Shape<NDIM, EVERY>;
+  const long long groups = (nb + S::G - 1) / S::G;
+  if (prefetch)
+    return launch_persistent(interp_decode_kernel<NDIM, EVERY, true>, decode_smem<NDIM, EVERY, true>(), groups,
+                             stream, codes, anchors, okeys, ovals, n_out, recon, nb, twoeb, image, n_steps,
+                             n_warp_steps);
+  return launch_persistent(interp_decode_kernel<NDIM, EVERY, false>, decode_smem<NDIM, EVERY, false>(), groups,
+                           stream, codes, anchors, okeys, ovals, n_out, recon, nb, twoeb, image, n_steps,
+                           n_warp_steps);
+}
+
+template <int NDIM, int EVERY>
+bool steps_fit(int n_steps, int n_warp_steps) {
+  return n_steps >= 1 && n_steps <= Shape<NDIM, EVERY>::MAXS && n_warp_steps >= 0 && n_warp_steps <= n_steps;
 }
 
 }  // namespace
 
+// Dispatch over the nine (rank, anchor stride) instantiations; anything
+// else is cudaErrorInvalidValue.
+#define INTERP_DISPATCH(ndim, every, CALL, OTHERWISE) \
+  switch ((ndim) * 100 + (every)) {                    \
+    case 116: return CALL(1, 16);                      \
+    case 108: return CALL(1, 8);                       \
+    case 104: return CALL(1, 4);                       \
+    case 216: return CALL(2, 16);                      \
+    case 208: return CALL(2, 8);                       \
+    case 204: return CALL(2, 4);                       \
+    case 316: return CALL(3, 16);                      \
+    case 308: return CALL(3, 8);                       \
+    case 304: return CALL(3, 4);                       \
+    default: return OTHERWISE;                         \
+  }
+
 // C interface (ctypes). Every pointer is device memory; the launch goes on
-// `stream` and the return value is cudaGetLastError() right after it.
+// `stream` and the return value is the first CUDA error of the launch
+// (cudaGetLastError() right after it), 0 on success.
+
+// Words of the step-table image for (ndim, every), -1 if unsupported.
+extern "C" int interp_table_words(int ndim, int every) {
+#define WORDS(N, E) Shape<N, E>::kTableWords
+  INTERP_DISPATCH(ndim, every, WORDS, -1)
+#undef WORDS
+}
+
 // `recon` may be null: the encoder then writes the codes only.
-extern "C" int interp_encode(const float* blocks, uint8_t* codes, float* recon, long long nb,
-                             int ndim, int every, float twoeb, float inv2eb,
-                             const int32_t* pts, const float* wts, const int32_t* step_off,
-                             int n_steps, const uint8_t* tapn, const int8_t* tapj,
-                             const float* tapw, void* stream) {
-  if (nb <= 0 || ndim < 1 || ndim > 3 || every < 1 || (kB - 1) % every)
-    return (int)cudaErrorInvalidValue;
-  interp_encode_kernel<<<(unsigned)nb, kThreads, 0, (cudaStream_t)stream>>>(
-      blocks, codes, recon, ndim, every, twoeb, inv2eb,
-      make_tables(pts, wts, step_off, n_steps, tapn, tapj, tapw));
-  return (int)cudaGetLastError();
+extern "C" int interp_encode(const float* blocks, uint8_t* codes, float* recon, long long nb, int ndim, int every,
+                             float twoeb, float inv2eb, const int* image, int n_steps, int n_warp_steps,
+                             int prefetch, void* stream) {
+  if (nb <= 0) return (int)cudaErrorInvalidValue;
+#define ENC(N, E)                                                                                          \
+  (steps_fit<N, E>(n_steps, n_warp_steps)                                                                  \
+       ? encode<N, E>(blocks, codes, recon, nb, twoeb, inv2eb, image, n_steps, n_warp_steps, prefetch,     \
+                      (cudaStream_t)stream)                                                                \
+       : (int)cudaErrorInvalidValue)
+  INTERP_DISPATCH(ndim, every, ENC, (int)cudaErrorInvalidValue)
+#undef ENC
 }
 
 // `anchors`: nb x (16/every + 1)^ndim; `okeys` ascending, n_out of them.
-extern "C" int interp_decode(const uint8_t* codes, const float* anchors, const long long* okeys,
-                             const float* ovals, long long n_out, float* recon, long long nb,
-                             int ndim, int every, float twoeb, const int32_t* pts,
-                             const float* wts, const int32_t* step_off, int n_steps,
-                             const uint8_t* tapn, const int8_t* tapj, const float* tapw,
-                             void* stream) {
-  if (nb <= 0 || ndim < 1 || ndim > 3 || every < 1 || (kB - 1) % every || n_out < 0)
-    return (int)cudaErrorInvalidValue;
-  interp_decode_kernel<<<(unsigned)nb, kThreads, 0, (cudaStream_t)stream>>>(
-      codes, anchors, okeys, ovals, n_out, recon, ndim, every, twoeb,
-      make_tables(pts, wts, step_off, n_steps, tapn, tapj, tapw));
-  return (int)cudaGetLastError();
+extern "C" int interp_decode(const uint8_t* codes, const float* anchors, const long long* okeys, const float* ovals,
+                             long long n_out, float* recon, long long nb, int ndim, int every, float twoeb,
+                             const int* image, int n_steps, int n_warp_steps, int prefetch, void* stream) {
+  if (nb <= 0 || n_out < 0) return (int)cudaErrorInvalidValue;
+#define DEC(N, E)                                                                                          \
+  (steps_fit<N, E>(n_steps, n_warp_steps)                                                                  \
+       ? decode<N, E>(codes, anchors, okeys, ovals, n_out, recon, nb, twoeb, image, n_steps, n_warp_steps, \
+                      prefetch, (cudaStream_t)stream)                                                      \
+       : (int)cudaErrorInvalidValue)
+  INTERP_DISPATCH(ndim, every, DEC, (int)cudaErrorInvalidValue)
+#undef DEC
 }

@@ -24,65 +24,150 @@ from ...core.stencils import Step
 from ..build import library
 
 LAUNCHES = {"interp_encode": 0, "interp_decode": 0}
+ANCHOR_STRIDES = (16, 8, 4)  # the kernels' instantiations
+MAX_WARP_STEP = 64  # a leading step with at most this many targets runs in one warp
+MAX_PATTERNS = 4  # distinct rows (tap offsets and coefficients) of one level's operator
+
+
+def _pack_rows(M: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """One operator's rows: per row c the word tap count | column t << (3 + 5 t)
+    | pattern << 23, and per pattern (the distinct (offsets, coefficients)
+    rows) its coefficients."""
+    n, cols, cf = _plain.banded_rows(M)
+    meta = np.zeros(M.shape[0], np.int32)
+    coef = np.zeros((MAX_PATTERNS, _plain.MAX_TAPS), np.float32)
+    patterns: list[tuple] = []
+    for c in range(M.shape[0]):
+        key = (tuple(cols[c, : n[c]] - c), tuple(cf[c, : n[c]].tolist()))
+        if key not in patterns:
+            if len(patterns) == MAX_PATTERNS:
+                raise ValueError(f"an operator has more than {MAX_PATTERNS} distinct rows")
+            coef[len(patterns)] = cf[c]
+            patterns.append(key)
+        meta[c] = int(n[c]) | sum(int(cols[c, t]) << (3 + 5 * t) for t in range(_plain.MAX_TAPS)) \
+            | patterns.index(key) << 23
+    return meta, coef
+
+def _levels(every: int) -> tuple[int, ...]:
+    return tuple(every >> i for i in range(1, every.bit_length()))
+
+
+def _coords(ndim: int) -> np.ndarray:
+    """(ndim, 17**ndim) coordinates of each flat block index, dim 0 first."""
+    return np.stack(np.unravel_index(np.arange(17**ndim), (17,) * ndim))
 
 
 @functools.lru_cache(maxsize=None)
 def pack_steps(steps: tuple[Step, ...], anchor_every: int) -> dict:
-    """Kernel tables of one step hierarchy (numpy).
+    """Kernel tables of one step hierarchy (numpy), in the compact form the
+    kernels keep in shared memory.
 
-    ``pts``: per target point, its flat index | used-dims mask << 16, step
-    after step (``step_off`` delimits them); ``wts``: the point's blend
-    weight. ``tapn/tapj/tapw``: per step and operator row, the banded
-    row's taps (count, ascending columns, coefficients). Raises when a
-    table does not have the shape the kernel assumes: one operator per
-    step, at most four taps a row, one weight shared by a point's dims.
-    The taps are the plain predictor's (``banded_rows``), in its order.
+    ``pts`` (u16): per target point, step after step (``step_off``
+    delimits them) and within a step by used dims, its flat index | used-dims
+    mask << 13; its blend weight is 1 / (number of used dims). ``step_op``:
+    per step, its level's index; ``meta`` (i32): per level and operator row,
+    the banded row's tap count | column t << (3 + 5 t) | pattern << 23, and
+    ``coef`` (f32): per level and pattern (distinct row), its coefficients,
+    in the plain predictor's order (``banded_rows``). ``n_warp_steps``: the
+    leading steps of at most ``MAX_WARP_STEP`` targets, which a 3-D block
+    runs in one warp. ``image``: all of it as the int32 words the kernels
+    copy into shared memory.
+
+    Raises ValueError when the steps do not have the shape the kernels
+    assume: 17^ndim blocks, ndim 1..3, an anchor stride of 16, 8 or 4 with
+    its levels in order, one operator per level, one blend weight
+    1 / (used dims) per point, every non-anchor point the target of exactly
+    one step, and every tap on an anchor or a target of an earlier step
+    (the kernels update one tile in place).
     """
     B = steps[0].mask.shape[0]
     ndim = steps[0].mask.ndim
     if B != 17 or not 1 <= ndim <= 3:
         raise ValueError(f"interp kernels take 17^ndim blocks with ndim 1..3, got B={B} ndim={ndim}")
-    pts, wts, off = [], [], [0]
-    tapn = np.zeros((len(steps), B), np.uint8)
-    tapj = np.zeros((len(steps), B, _plain.MAX_TAPS), np.int8)
-    tapw = np.zeros((len(steps), B, _plain.MAX_TAPS), np.float32)
-    for k, st in enumerate(steps):
+    every = int(anchor_every)
+    if every not in ANCHOR_STRIDES:
+        raise ValueError(f"interp kernels take anchor strides {ANCHOR_STRIDES}, got {anchor_every}")
+    levels = _levels(every)
+    if len(steps) > ndim * len(levels):
+        raise ValueError(f"{len(steps)} steps; the kernels take at most {ndim * len(levels)}")
+    coords = _coords(ndim)
+    sd = 17 ** np.arange(ndim - 1, -1, -1)
+    meta = np.zeros((len(levels), B), np.int32)
+    coef = np.zeros((len(levels), MAX_PATTERNS, _plain.MAX_TAPS), np.float32)
+    ops = [None] * len(levels)
+    done = np.all(coords % every == 0, axis=0)  # anchors
+    pts, off, step_op = [], [0], []
+    for st in steps:
+        if st.level not in levels:
+            raise ValueError(f"step at level {st.level}; anchor stride {every} has levels {levels}")
+        op = levels.index(st.level)
+        if step_op and op < step_op[-1]:
+            raise ValueError("interp kernels need the levels coarse to fine")
         M0 = st.matrices[0]
-        if any(not np.array_equal(M, M0) for M in st.matrices):
-            raise ValueError("interp kernels need one operator per step")
+        if any(not np.array_equal(M, M0) for M in st.matrices) or (ops[op] is not None and
+                                                                     not np.array_equal(ops[op], M0)):
+            raise ValueError("interp kernels need one operator per level")
+        if ops[op] is None:
+            ops[op] = M0
+            meta[op], coef[op] = _pack_rows(M0)
+        n, cols, _ = _plain.banded_rows(M0)
         idx = np.flatnonzero(st.mask.reshape(-1))
+        if done[idx].any():
+            raise ValueError("a point is the target of two steps or an anchor")
         dmask = np.zeros(idx.size, np.int32)
-        w = np.zeros(idx.size, np.float32)
+        for d, wd in zip(st.dims, st.weights):
+            dmask |= (wd.reshape(-1)[idx] != 0).astype(np.int32) << d
+        used = np.array([bin(m).count("1") for m in dmask])
         for d, wd in zip(st.dims, st.weights):
             wv = wd.reshape(-1)[idx]
-            used = wv != 0
-            if np.any(used & (dmask != 0) & (w != wv)):
-                raise ValueError("interp kernels need one blend weight per point")
-            w = np.where(used, wv, w).astype(np.float32)
-            dmask |= used.astype(np.int32) << d
-        pts.append(idx.astype(np.int32) | (dmask << 16))
-        wts.append(w)
+            on = dmask >> d & 1 == 1
+            if np.any(wv[on] != (np.float32(1) / used[on].astype(np.float32))):
+                raise ValueError("interp kernels need the blend weight 1 / (used dims) per point")
+            c = coords[d, idx[on]]
+            base = idx[on] - c * sd[d]
+            for t in range(_plain.MAX_TAPS):
+                has = n[c] > t
+                if not done[base[has] + cols[c[has], t] * sd[d]].all():
+                    raise ValueError("a tap reads a point that no earlier step reconstructs")
+        done[idx] = True
+        order = np.argsort(dmask, kind="stable")  # a warp's points share their used dims
+        pts.append(idx[order] | (dmask[order] << 13))
         off.append(off[-1] + idx.size)
-        tapn[k], tapj[k], tapw[k] = _plain.banded_rows(M0)
+        step_op.append(op)
+    if not done.all():
+        raise ValueError("the steps leave points without a prediction")
+    sizes = np.diff(off)
+    n_warp = int(np.argmax(sizes > MAX_WARP_STEP)) if (sizes > MAX_WARP_STEP).any() else len(steps)
+    max_steps = ndim * len(levels)
+    pts = np.concatenate(pts).astype(np.uint16)
+    image = np.concatenate([
+        coef.reshape(-1).view(np.int32), meta.reshape(-1),
+        np.pad(np.asarray(off, np.int32), (0, max_steps + 1 - len(off)), mode="edge"),
+        np.pad(np.asarray(step_op, np.int32), (0, max_steps - len(step_op))),
+        np.pad(pts, (0, pts.size % 2)).view(np.int32),
+    ]).astype(np.int32)
     return {
         "ndim": ndim,
+        "every": every,
         "n_steps": len(steps),
-        "pts": np.concatenate(pts).astype(np.int32),
-        "wts": np.concatenate(wts).astype(np.float32),
+        "n_warp_steps": n_warp,
+        "pts": pts,
         "step_off": np.asarray(off, np.int32),
-        "tapn": tapn,
-        "tapj": tapj,
-        "tapw": tapw,
+        "step_op": np.asarray(step_op, np.int32),
+        "meta": meta,
+        "coef": coef,
+        "image": image,
     }
 
 
 @functools.lru_cache(maxsize=64)
 def _device_tables(steps: tuple[Step, ...], anchor_every: int, device: str) -> dict:
-    tb = pack_steps(steps, anchor_every)
-    out = dict(tb)
-    for key in ("pts", "wts", "step_off", "tapn", "tapj", "tapw"):
-        out[key] = torch.from_numpy(np.ascontiguousarray(tb[key])).to(device)
-    return out
+    tb = dict(pack_steps(steps, anchor_every))
+    words = _lib().interp_table_words(tb["ndim"], tb["every"])
+    if words != tb["image"].size:
+        raise RuntimeError(f"step table image has {tb['image'].size} words, the kernels expect {words}")
+    tb["image"] = torch.from_numpy(tb["image"]).to(device)
+    return tb
 
 
 def _p(t: torch.Tensor) -> ctypes.c_void_p:
@@ -106,11 +191,18 @@ def _check_blocks(t: torch.Tensor, dtype, name: str):
         raise ValueError(f"{name} must be (nb, 17, ..) with 1..3 spatial dims, got {tuple(t.shape)}")
 
 
+def _check_stride(anchor_every) -> None:
+    if anchor_every not in ANCHOR_STRIDES:
+        raise ValueError(f"interp kernels take anchor strides {ANCHOR_STRIDES}, got {anchor_every}")
+
+
 @functools.lru_cache(maxsize=None)
 def _lib():
     lib = library("interp3d")
     vp, i64, i32, f = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
-    tables = [vp, vp, vp, i32, vp, vp, vp, vp]  # pts wts step_off n_steps tapn tapj tapw stream
+    tables = [vp, i32, i32, i32, vp]  # image n_steps n_warp_steps prefetch stream
+    lib.interp_table_words.argtypes = [i32, i32]
+    lib.interp_table_words.restype = ctypes.c_int
     lib.interp_encode.argtypes = [vp, vp, vp, i64, i32, i32, f, f] + tables
     lib.interp_encode.restype = ctypes.c_int
     lib.interp_decode.argtypes = [vp, vp, vp, vp, i64, vp, i64, i32, i32, f] + tables
@@ -118,14 +210,13 @@ def _lib():
     return lib
 
 
-def _table_args(tb: dict, device) -> list:
+def _table_args(tb: dict, device, prefetch: bool) -> list:
     stream = torch.cuda.current_stream(device).cuda_stream
-    return [_p(tb["pts"]), _p(tb["wts"]), _p(tb["step_off"]), tb["n_steps"],
-            _p(tb["tapn"]), _p(tb["tapj"]), _p(tb["tapw"]), ctypes.c_void_p(stream)]
+    return [_p(tb["image"]), tb["n_steps"], tb["n_warp_steps"], int(prefetch), ctypes.c_void_p(stream)]
 
 
 def compress_blocks(blocks: torch.Tensor, twoeb: float, steps: tuple[Step, ...], anchor_every: int = 16,
-                    *, with_recon: bool = True):
+                    *, with_recon: bool = True, _prefetch: bool = False):
     """(nb, 17..) f32 blocks -> (codes u8, recon f32), same shape; the
     outliers are the code-0 points. ``with_recon=False`` returns recon None
     and the kernel writes the codes only."""
@@ -133,6 +224,7 @@ def compress_blocks(blocks: torch.Tensor, twoeb: float, steps: tuple[Step, ...],
         codes, recon = _plain.compress_blocks(blocks, twoeb, steps, anchor_every)
         return codes, (recon if with_recon else None)
     _check_blocks(blocks, torch.float32, "blocks")
+    _check_stride(anchor_every)
     codes = torch.empty(blocks.shape, dtype=torch.uint8, device=blocks.device)
     recon = torch.empty_like(blocks) if with_recon else None
     nb = int(blocks.shape[0])
@@ -145,7 +237,7 @@ def compress_blocks(blocks: torch.Tensor, twoeb: float, steps: tuple[Step, ...],
     with torch.cuda.device(blocks.device):
         rc = _lib().interp_encode(_p(blocks), _p(codes), None if recon is None else _p(recon), nb, tb["ndim"],
                                   int(anchor_every), float(tw), float(np.float32(1.0) / tw),
-                                  *_table_args(tb, blocks.device))
+                                  *_table_args(tb, blocks.device, _prefetch))
     if rc != 0:
         raise RuntimeError(f"interp_encode launch failed with CUDA error {rc}")
     LAUNCHES["interp_encode"] += 1
@@ -153,7 +245,8 @@ def compress_blocks(blocks: torch.Tensor, twoeb: float, steps: tuple[Step, ...],
 
 
 def decompress_blocks(codes: torch.Tensor, anchors: torch.Tensor, out_keys: torch.Tensor, out_vals: torch.Tensor,
-                      twoeb: float, steps: tuple[Step, ...], anchor_every: int = 16) -> torch.Tensor:
+                      twoeb: float, steps: tuple[Step, ...], anchor_every: int = 16, *,
+                      _prefetch: bool = False) -> torch.Tensor:
     """Replay: (nb, 17..) u8 codes, the blocks' anchors (nb, A..) f32 with
     A = 16 // anchor_every + 1, and the outliers as int64 keys
     ``block * 17**ndim + cell`` (unique, any order) with their f32 values
@@ -161,6 +254,7 @@ def decompress_blocks(codes: torch.Tensor, anchors: torch.Tensor, out_keys: torc
     if codes.device.type == "cpu":
         return _plain.decompress_blocks(codes, anchors, out_keys, out_vals, twoeb, steps, anchor_every)
     _check_blocks(codes, torch.uint8, "codes")
+    _check_stride(anchor_every)
     nb, ndim = int(codes.shape[0]), codes.dim() - 1
     _check(anchors, torch.float32, "anchors", (nb,) + (16 // int(anchor_every) + 1,) * ndim)
     _check(out_keys, torch.int64, "out_keys", (int(out_keys.numel()),))
@@ -171,11 +265,11 @@ def decompress_blocks(codes: torch.Tensor, anchors: torch.Tensor, out_keys: torc
     tb = _device_tables(steps, int(anchor_every), str(codes.device))
     if tb["ndim"] != ndim:
         raise ValueError(f"step tables are {tb['ndim']}-D, codes are {ndim}-D")
-    keys, order = torch.sort(out_keys)  # the kernel binary-searches them
+    keys, order = torch.sort(out_keys)  # each CTA walks them in order
     vals = out_vals[order]
     with torch.cuda.device(codes.device):
         rc = _lib().interp_decode(_p(codes), _p(anchors), _p(keys), _p(vals), int(keys.numel()), _p(recon), nb,
-                                  ndim, int(anchor_every), float(np.float32(twoeb)), *_table_args(tb, codes.device))
+                                  ndim, int(anchor_every), float(np.float32(twoeb)), *_table_args(tb, codes.device, _prefetch))
     if rc != 0:
         raise RuntimeError(f"interp_decode launch failed with CUDA error {rc}")
     LAUNCHES["interp_decode"] += 1

@@ -42,7 +42,7 @@ def _steps(ndim, stride, spline, scheme):
 
 
 @pytest.mark.parametrize("ndim,scheme", [(3, "md"), (3, "1d-210"), (2, "md"), (2, "1d-10"), (1, "md")])
-@pytest.mark.parametrize("stride", [16, 8])
+@pytest.mark.parametrize("stride", [16, 8, 4])
 @pytest.mark.parametrize("spline", ["linear", "cubic", "natural-cubic"])
 def test_interp_kernels_match_plain(cuda, ndim, scheme, stride, spline):
     g = torch.Generator(device=cuda).manual_seed(ndim * 100 + stride)
@@ -63,6 +63,25 @@ def test_interp_kernels_match_plain(cuda, ndim, scheme, stride, spline):
     anchors, keys, vals = dec_in  # keys in any order give the same replay
     perm = torch.randperm(keys.numel(), generator=g, device=cuda)
     assert torch.equal(interp.decompress_blocks(ck, anchors, keys[perm], vals[perm], 2 * eb, steps, stride), dk)
+
+
+@pytest.mark.parametrize("ndim", [1, 2, 3])
+@pytest.mark.parametrize("nb", [0, 1, 131, 133, 4097])
+def test_interp_kernels_ragged_block_counts(cuda, ndim, nb):
+    """Block counts that are no multiple of the persistent grid or of the
+    blocks a CTA holds (8 in 2-D, 32 in 1-D), with outliers, as slices of a
+    larger tensor (the decoder's codes then start unaligned)."""
+    g = torch.Generator(device=cuda).manual_seed(nb * 10 + ndim)
+    full = torch.randn((nb + 1,) + (17,) * ndim, generator=g, device=cuda).cumsum(1)
+    full[1::3, 2] += 100.0
+    blocks, eb = full[1:], 1e-2
+    steps = _steps(ndim, 16, "cubic", "md")
+    ck, rk = interp.compress_blocks(blocks, 2 * eb, steps, 16)
+    cp, rp = plain.compress_blocks(blocks, 2 * eb, steps, 16)
+    assert torch.equal(ck, cp) and torch.equal(rk, rp)
+    dec_in = plain.decode_inputs(blocks, ck, 16)
+    codes = torch.cat([torch.zeros((1,) + ck.shape[1:], dtype=torch.uint8, device=cuda), ck])[1:]
+    assert torch.equal(interp.decompress_blocks(codes, *dec_in, 2 * eb, steps, 16), rk)
 
 
 @pytest.mark.parametrize("n", [0, 1, 15, 16, 17, 8191, 8193, 1_000_003])
@@ -122,6 +141,8 @@ def test_wrappers_check_their_inputs(cuda):
         interp.compress_blocks(torch.zeros((2, 17, 17, 18), device=cuda), 0.1, steps)
     with pytest.raises(ValueError):
         interp.compress_blocks(torch.zeros((17, 17, 17, 2), device=cuda).permute(3, 0, 1, 2), 0.1, steps)
+    with pytest.raises(ValueError):  # the kernels are built for anchor strides 16, 8 and 4
+        interp.compress_blocks(torch.zeros((2, 17, 17, 17), device=cuda), 0.1, _steps(3, 2, "cubic", "md"), 2)
     codes = torch.full((2, 17, 17, 17), 128, dtype=torch.uint8, device=cuda)
     keys, vals = torch.zeros(0, dtype=torch.int64, device=cuda), torch.zeros(0, device=cuda)
     with pytest.raises(ValueError):  # stride-16 blocks have 2 anchors per dim

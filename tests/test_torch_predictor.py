@@ -6,6 +6,8 @@ criterion for its Pallas kernel, tests/test_kernels.py); float recon may
 differ by float32 tie-breaks between frameworks, so it is held to 2 eb of
 the reference and to the bound eb on non-outliers.
 """
+import itertools
+
 import numpy as np
 import pytest
 import torch
@@ -84,46 +86,67 @@ def test_plain_decompress_blocks_matches_reference(scheme):
 
 
 def _kernel_emulation(blocks, codes_in, twoeb, steps, stride, decode=False):
-    """The interp kernels' loop, in numpy float32, driven by the packed
-    tables exactly as csrc/interp3d.cu reads them: per step and target
-    point, pred = sum over used dims of w * (sum of tap products), each
-    operation rounded to float32, then quantize (encode) or replay (decode).
-    Vectorized over blocks; returns (codes, recon)."""
+    """The interp kernels' loop, in numpy float32, driven by the compact
+    tables exactly as csrc/interp3d.cu reads them: one tile per block,
+    updated in place, step after step; per target point, pred = sum over
+    its used dims (u16 point word: index | dims mask << 13) of w * (sum of
+    tap products), w = 1 / (used dims), each operation rounded to float32;
+    then quantize against the original value in the tile and overwrite it
+    (encode), or replay the code, a code-0 point keeping the outlier value
+    placed before the first step (decode). Vectorized over blocks and over
+    a step's points (a step reads only anchors and earlier targets).
+    Returns (codes, recon)."""
     tb = pack_steps(steps, stride)
-    nb = blocks.shape[0]
-    orig = blocks.reshape(nb, -1)
-    V = orig.shape[1]
-    idx_all = np.arange(V)
-    coords = np.stack([idx_all // 289, (idx_all // 17) % 17, idx_all % 17])
+    nb, ndim = blocks.shape[0], blocks.ndim - 1
+    V = 17**ndim
+    coords = np.stack(np.unravel_index(np.arange(V), (17,) * ndim))
+    sd = 17 ** np.arange(ndim - 1, -1, -1)
     anchor = np.all(coords % stride == 0, axis=0)
-    rec = np.where(anchor[None], orig, np.float32(0)).astype(np.float32)
-    codes = np.full((nb, V), 128, np.uint8) if not decode else codes_in.reshape(nb, -1)
+    orig = blocks.reshape(nb, V)
     tw = np.float32(twoeb)
     inv = np.float32(1) / tw
-    sd = (289, 17, 1)
+    if decode:
+        codes = codes_in.reshape(nb, V)
+        anchors, keys, vals = (t.numpy() for t in tpred.decode_inputs(torch.from_numpy(blocks),
+                                                                        torch.from_numpy(codes_in), stride))
+        tile = np.zeros((nb, V), np.float32)
+        tile[:, anchor] = anchors.reshape(nb, -1)  # row-major anchor slots, as the kernel's anchor_index
+        b, at = keys // V, keys % V
+        keep = (codes[b, at] == 0) & ~anchor[at]
+        tile[b[keep], at[keep]] = vals[keep]
+    else:
+        codes = np.full((nb, V), 128, np.uint8)
+        tile = orig.copy()
+    pts = tb["pts"].astype(np.int64)
     for k in range(tb["n_steps"]):
-        for p in range(tb["step_off"][k], tb["step_off"][k + 1]):
-            idx, dmask, w = int(tb["pts"][p]) & 0xFFFF, int(tb["pts"][p]) >> 16, tb["wts"][p]
-            pred = np.zeros(nb, np.float32)
-            for d in range(3):
-                if not dmask >> d & 1:
-                    continue
-                c = coords[d, idx]
-                base = idx - c * sd[d]
-                acc = np.zeros(nb, np.float32)
-                for t in range(tb["tapn"][k, c]):
-                    acc = acc + tb["tapw"][k, c, t] * rec[:, base + int(tb["tapj"][k, c, t]) * sd[d]]
-                pred = pred + w * acc
-            if decode:
-                q = codes[:, idx].astype(np.int32) - 128
-                rec[:, idx] = np.where(q == -128, orig[:, idx], pred + q.astype(np.float32) * tw)
-            else:
-                o = orig[:, idx]
-                q = np.rint((o - pred) * inv)
-                out = np.abs(q) > 127
-                rec[:, idx] = np.where(out, o, pred + q * tw)
-                codes[:, idx] = np.where(out, 0, np.clip(q, -128, 127) + 128).astype(np.uint8)
-    return codes.reshape(blocks.shape), rec.reshape(blocks.shape)
+        pk = pts[tb["step_off"][k]: tb["step_off"][k + 1]]
+        idx, dmask = pk & 0x1FFF, pk >> 13
+        meta, coef = tb["meta"][tb["step_op"][k]], tb["coef"][tb["step_op"][k]]
+        used = np.array([bin(m).count("1") for m in dmask])
+        w = np.where(used == 1, np.float32(1), np.where(used == 2, np.float32(0.5), np.float32(1) / np.float32(3)))
+        w = w.astype(np.float32)
+        pred = np.zeros((nb, idx.size), np.float32)
+        for d in range(ndim):
+            on = (dmask >> d & 1) == 1
+            c = coords[d, idx]
+            base = idx - c * sd[d]
+            acc = np.zeros((nb, idx.size), np.float32)
+            for t in range(4):
+                has = on & ((meta[c] & 7) > t)
+                col = (meta[c] >> (3 + 5 * t)) & 31
+                term = coef[(meta[c] >> 23) & 3, t] * tile[:, np.where(has, base + col * sd[d], 0)]
+                acc = np.where(has, acc + term, acc)
+            pred = np.where(on, pred + w * acc, pred)
+        if decode:
+            q = codes[:, idx].astype(np.int32) - 128
+            tile[:, idx] = np.where(q == -128, tile[:, idx], pred + q.astype(np.float32) * tw)
+        else:
+            o = tile[:, idx]
+            q = np.rint((o - pred) * inv)
+            out = np.abs(q) > 127
+            tile[:, idx] = np.where(out, o, pred + q * tw)
+            codes[:, idx] = np.where(out, 0, np.clip(q, -128, 127) + 128).astype(np.uint8)
+    return codes.reshape(blocks.shape), tile.reshape(blocks.shape)
 
 
 @pytest.mark.parametrize("spline,scheme,levels", [
@@ -135,6 +158,62 @@ def test_kernel_tables_reproduce_the_plain_predictor_bit_for_bit(spline, scheme,
     eb, stride = 1e-2, 2 * levels[0]
     steps = _steps(spline, scheme, levels)
     ck, ok, rk = _port(blocks, eb, steps, stride)
+    ce, re = _kernel_emulation(blocks, None, 2 * eb, steps, stride)
+    assert np.array_equal(ce, ck) and np.array_equal(re, rk)
+    _, rd = _kernel_emulation(blocks, ck, 2 * eb, steps, stride, decode=True)
+    assert np.array_equal(rd, rk)
+
+
+def _schemes(ndim):
+    return ["md", "1d"] + ["1d-" + "".join(map(str, p)) for p in itertools.permutations(range(ndim))]
+
+
+_ALL_CONFIGS = [(nd, stride, spline, scheme) for nd in (1, 2, 3) for stride in (16, 8, 4)
+                for spline in ("linear", "cubic", "natural-cubic") for scheme in _schemes(nd)]
+
+
+@pytest.mark.parametrize("ndim,stride,spline,scheme", _ALL_CONFIGS)
+def test_steps_allow_one_tile_in_place(ndim, stride, spline, scheme):
+    """What lets the kernels update one tile in place, read off the step
+    matrices (not the packed tables): every non-anchor point is the target
+    of exactly one step, and every tap of every used dim reads an anchor or
+    a target of an earlier step."""
+    levels = tauto.levels_for_stride(stride)
+    steps = build_steps(ndim, 17, levels, (spline,) * len(levels), (scheme,) * len(levels))
+    grids = np.meshgrid(*([np.arange(17)] * ndim), indexing="ij")
+    done = np.all([g % stride == 0 for g in grids], axis=0)
+    hits = np.zeros(done.shape, np.int32)
+    for st in steps:
+        for d, M, w in zip(st.dims, st.matrices, st.weights):
+            for pt in zip(*np.nonzero(st.mask & (w != 0))):
+                for j in np.flatnonzero(M[pt[d]]):
+                    tap = list(pt)
+                    tap[d] = j
+                    assert done[tuple(tap)], f"step at level {st.level} reads {tuple(tap)} for {pt}"
+        hits += st.mask
+        done |= st.mask
+    anchors = np.all([g % stride == 0 for g in grids], axis=0)
+    assert (hits[anchors] == 0).all() and (hits[~anchors] == 1).all()
+    tb = pack_steps(steps, stride)  # and the kernels' tables accept them
+    assert tb["pts"].size == (~anchors).sum()
+
+
+@pytest.mark.parametrize("ndim,stride,spline,scheme", [
+    (1, 16, "cubic", "md"), (1, 4, "linear", "1d"), (2, 16, "natural-cubic", "md"), (2, 8, "cubic", "1d-10"),
+    (2, 4, "cubic", "md"), (3, 16, "linear", "md"), (3, 8, "cubic", "1d"), (3, 4, "natural-cubic", "1d-120"),
+])
+def test_kernel_emulation_matches_plain_with_outliers(ndim, stride, spline, scheme):
+    """The compact tables, the in-place tile and the pre-placed outliers
+    reproduce the plain encoder and decoder bit for bit, on blocks with a
+    slab of outliers in every third block."""
+    rng = np.random.default_rng(ndim * 100 + stride)
+    blocks = (rng.standard_normal((7,) + (17,) * ndim).cumsum(1) * 0.1).astype(np.float32)
+    blocks[::3, 3] += 100.0
+    eb = 1e-2
+    levels = tauto.levels_for_stride(stride)
+    steps = build_steps(ndim, 17, levels, (spline,) * len(levels), (scheme,) * len(levels))
+    ck, ok, rk = _port(blocks, eb, steps, stride)
+    assert ok.any()
     ce, re = _kernel_emulation(blocks, None, 2 * eb, steps, stride)
     assert np.array_equal(ce, ck) and np.array_equal(re, rk)
     _, rd = _kernel_emulation(blocks, ck, 2 * eb, steps, stride, decode=True)
