@@ -34,10 +34,9 @@
 //   and each walks a contiguous run of blocks, so the tables are loaded once
 //   per CTA and the decoder finds each block's outliers with a cursor that
 //   only moves forward (one binary search per CTA).
-// - A 3-D block takes the whole CTA (256 threads); its coarse steps (at
-//   most 64 targets each) run in warp 0 with __syncwarp, the fine steps
-//   across the CTA with __syncthreads. 2-D and 1-D blocks take a warp and
-//   8 lanes, so 8 or 32 blocks share a CTA and every step is warp-synchronous.
+// - A 3-D block takes the whole CTA (256 threads), with a barrier after
+//   each step. 2-D and 1-D blocks take a warp and 8 lanes, so 8 or 32
+//   blocks share a CTA and every step is warp-synchronous.
 //
 // Encode and decode run the same predict() with the same operation order
 // and round every product and sum on its own (__fmul_rn / __fadd_rn: no FMA
@@ -55,9 +54,17 @@ constexpr float kRadius = 127.0f;
 constexpr int kCenter = 128;
 constexpr int kPatterns = 4;  // distinct rows of one level's operator
 
-__host__ __device__ constexpr int ipow(int b, int e) { return e == 0 ? 1 : b * ipow(b, e - 1); }
-__host__ __device__ constexpr int ilog2(int v) { return v <= 1 ? 0 : 1 + ilog2(v / 2); }
-__host__ __device__ constexpr int round_up(int v, int m) { return (v + m - 1) / m * m; }
+constexpr int ipow(int b, int e) { return e == 0 ? 1 : b * ipow(b, e - 1); }
+constexpr int ilog2(int v) { return v <= 1 ? 0 : 1 + ilog2(v / 2); }
+constexpr int round_up(int v, int m) { return (v + m - 1) / m * m; }
+
+// Stride of dim d in a 17^NDIM block. Written as constants so that, in a
+// loop over d the compiler unrolls, every use folds to an immediate (a
+// call of the recursive ipow there stays a runtime loop and division).
+template <int NDIM>
+__device__ __forceinline__ int stride_of(int d) {
+  return d == NDIM - 1 ? 1 : (d == NDIM - 2 ? kB : kB * kB);
+}
 
 // Everything the kernels know about one (rank, anchor stride) pair.
 template <int NDIM, int EVERY>
@@ -80,7 +87,7 @@ struct Shape {
   static constexpr int kTableWords = kCoefWords + kMetaWords + (MAXS + 1) + MAXS + kPtsWords;
   static constexpr int kTableBytes = round_up(kTableWords * 4, 16);
   static constexpr int kTileBytes = round_up(GV * 4, 16);
-  static constexpr int kCodeBytes = round_up(GV + 8, 16);  // + room for a 4-byte alignment head
+  static constexpr int kCodeBytes = round_up(GV, 16);
 };
 
 template <int NDIM, int EVERY>
@@ -107,14 +114,6 @@ __device__ __forceinline__ void load_tables(unsigned char* smem, const int* __re
   for (int i = threadIdx.x; i < Shape<NDIM, EVERY>::kTableWords; i += kThreads) dst[i] = image[i];
 }
 
-// 4-byte asynchronous copies from device memory into shared memory.
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
-
 // pred = sum over used dims d (ascending) of w * (sum over taps of coef * tile[tap]),
 // w = 1 / (number of used dims), each product and sum rounded to fp32 on its own.
 template <int NDIM>
@@ -124,7 +123,7 @@ __device__ __forceinline__ float predict(const float* tile, int idx, int dmask, 
   int rem = idx;
 #pragma unroll
   for (int d = 0; d < NDIM; ++d) {
-    const int sd = ipow(kB, NDIM - 1 - d);
+    const int sd = stride_of<NDIM>(d);
     c[d] = rem / sd;
     rem -= c[d] * sd;
   }
@@ -134,7 +133,7 @@ __device__ __forceinline__ float predict(const float* tile, int idx, int dmask, 
 #pragma unroll
   for (int d = 0; d < NDIM; ++d) {
     if (dmask & (1 << d)) {
-      const int sd = ipow(kB, NDIM - 1 - d);
+      const int sd = stride_of<NDIM>(d);
       const int m = meta[c[d]];
       const float4 k = coef[(m >> 23) & (kPatterns - 1)];
       const int n = m & 7;
@@ -185,30 +184,19 @@ __device__ __forceinline__ void run_step(const Tables<NDIM, EVERY>& tb, int k, i
 // All steps over the CTA's tile; returns after a CTA barrier, so the tile
 // is complete for every thread.
 template <int NDIM, int EVERY, bool ENCODE>
-__device__ __forceinline__ void run_steps(const Tables<NDIM, EVERY>& tb, int n_steps, int n_warp_steps,
-                                          float* tile, uint8_t* code, float twoeb, float inv2eb) {
+__device__ __forceinline__ void run_steps(const Tables<NDIM, EVERY>& tb, int n_steps, float* tile, uint8_t* code,
+                                          float twoeb, float inv2eb) {
   using S = Shape<NDIM, EVERY>;
   if constexpr (S::TPB <= 32) {
     // a block's threads share a warp: each block owns V points of the tile
     const int slot = threadIdx.x / S::TPB, lane = threadIdx.x % S::TPB;
-    float* t = tile + slot * S::V;
-    uint8_t* c = code + slot * S::V;
     for (int k = 0; k < n_steps; ++k) {
-      run_step<NDIM, EVERY, ENCODE>(tb, k, lane, S::TPB, t, c, twoeb, inv2eb);
+      run_step<NDIM, EVERY, ENCODE>(tb, k, lane, S::TPB, tile + slot * S::V, code + slot * S::V, twoeb, inv2eb);
       __syncwarp();
     }
     __syncthreads();
   } else {
-    int k = 0;
-    if (threadIdx.x < 32) {
-      for (; k < n_warp_steps; ++k) {
-        run_step<NDIM, EVERY, ENCODE>(tb, k, threadIdx.x, 32, tile, code, twoeb, inv2eb);
-        __syncwarp();
-      }
-    }
-    k = n_warp_steps;
-    if (k > 0) __syncthreads();
-    for (; k < n_steps; ++k) {
+    for (int k = 0; k < n_steps; ++k) {
       run_step<NDIM, EVERY, ENCODE>(tb, k, threadIdx.x, kThreads, tile, code, twoeb, inv2eb);
       __syncthreads();
     }
@@ -221,51 +209,34 @@ __device__ __forceinline__ void group_range(long long ng, long long* begin, long
   *end = ((long long)blockIdx.x + 1) * ng / gridDim.x;
 }
 
-template <int NDIM, int EVERY, bool PF>
+template <int NDIM, int EVERY>
 __global__ void __launch_bounds__(kThreads)
 interp_encode_kernel(const float* __restrict__ blocks, uint8_t* __restrict__ codes, float* __restrict__ recon,
-                     long long nb, float twoeb, float inv2eb, const int* __restrict__ image, int n_steps,
-                     int n_warp_steps) {
+                     long long nb, float twoeb, float inv2eb, const int* __restrict__ image, int n_steps) {
   using S = Shape<NDIM, EVERY>;
   extern __shared__ __align__(16) unsigned char smem[];
   load_tables<NDIM, EVERY>(smem, image);
   const Tables<NDIM, EVERY> tb(smem);
-  float* tiles = reinterpret_cast<float*>(smem + S::kTableBytes);
-  uint8_t* code = smem + S::kTableBytes + (PF ? 2 : 1) * S::kTileBytes;
+  float* tile = reinterpret_cast<float*>(smem + S::kTableBytes);
+  uint8_t* code = smem + S::kTableBytes + S::kTileBytes;
   // anchors keep the center code; every other point gets its code from its step
   for (int i = threadIdx.x; i < S::GV; i += kThreads) code[i] = kCenter;
   long long g0, g1;
   group_range((nb + S::G - 1) / S::G, &g0, &g1);
   const long long total = nb * S::V;
-  // each thread loads and later stores the same tile points, so the store of
-  // one block and the load of the next need no barrier between them
-  auto fetch = [&](float* tile, long long base) {
-    for (int i = threadIdx.x; i < S::GV; i += kThreads) {
-      if (base + i < total) cp_async4(tile + i, blocks + base + i); else tile[i] = 0.0f;
-    }
-    cp_async_commit();
-  };
-  if constexpr (PF) fetch(tiles, g0 * S::GV);
-  int buf = 0;
-  for (long long g = g0; g < g1; ++g, buf ^= 1) {
+  for (long long g = g0; g < g1; ++g) {
     const long long base = g * S::GV;
-    float* tile = tiles + (PF ? buf * (S::kTileBytes / 4) : 0);
-    if constexpr (PF) {
-      cp_async_wait_all();
-      __syncthreads();
-      if (g + 1 < g1) fetch(tiles + (buf ^ 1) * (S::kTileBytes / 4), base + S::GV);
-    } else {
-#pragma unroll 4
-      for (int i = threadIdx.x; i < S::GV; i += kThreads) tile[i] = base + i < total ? blocks[base + i] : 0.0f;
-      __syncthreads();
-    }
-    run_steps<NDIM, EVERY, true>(tb, n_steps, n_warp_steps, tile, code, twoeb, inv2eb);
-    for (int i = threadIdx.x; i < S::GV; i += kThreads) {
-      if (base + i < total) {
-        codes[base + i] = code[i];
-        if (recon != nullptr) recon[base + i] = tile[i];
-      }
-    }
+    const int n = total - base < S::GV ? (int)(total - base) : S::GV;  // points of this group in the batch
+    const float* src = blocks + base;
+    // each thread loads and later stores the same tile points, so the store of
+    // one block and the load of the next need no barrier between them
+#pragma unroll 8
+    for (int i = threadIdx.x; i < S::GV; i += kThreads) tile[i] = i < n ? src[i] : 0.0f;
+    __syncthreads();
+    run_steps<NDIM, EVERY, true>(tb, n_steps, tile, code, twoeb, inv2eb);
+    for (int i = threadIdx.x; i < n; i += kThreads) codes[base + i] = code[i];
+    if (recon != nullptr)
+      for (int i = threadIdx.x; i < n; i += kThreads) recon[base + i] = tile[i];
   }
 }
 
@@ -296,83 +267,47 @@ __device__ __forceinline__ int anchor_index(int slot) {
   int idx = 0;
 #pragma unroll
   for (int d = NDIM - 1; d >= 0; --d) {
-    idx += (slot % S::A) * EVERY * ipow(kB, NDIM - 1 - d);
+    idx += (slot % S::A) * EVERY * stride_of<NDIM>(d);
     slot /= S::A;
   }
   return idx;
 }
 
-template <int NDIM, int EVERY, bool PF>
+template <int NDIM, int EVERY>
 __global__ void __launch_bounds__(kThreads)
 interp_decode_kernel(const uint8_t* __restrict__ codes, const float* __restrict__ anchors,
                      const long long* __restrict__ okeys, const float* __restrict__ ovals, long long n_out,
                      float* __restrict__ recon, long long nb, float twoeb, const int* __restrict__ image,
-                     int n_steps, int n_warp_steps) {
+                     int n_steps) {
   using S = Shape<NDIM, EVERY>;
-  constexpr int kAnc = round_up(S::G * S::NA * 4, 16);
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ long long cursor0;
   load_tables<NDIM, EVERY>(smem, image);
   const Tables<NDIM, EVERY> tb(smem);
   float* tile = reinterpret_cast<float*>(smem + S::kTableBytes);
-  uint8_t* codebufs = smem + S::kTableBytes + S::kTileBytes;
-  float* ancbufs = reinterpret_cast<float*>(codebufs + (PF ? 2 : 1) * S::kCodeBytes);
+  uint8_t* code = smem + S::kTableBytes + S::kTileBytes;
   long long g0, g1;
   group_range((nb + S::G - 1) / S::G, &g0, &g1);
   const long long total = nb * S::V;
-  // PF: the group's codes as aligned 4-byte words, the first `head` bytes
-  // before the group's start; partial words are copied byte by byte
-  auto head_of = [&](long long base) { return (int)((uintptr_t)(codes + base) & 3); };
-  auto fetch = [&](int b, long long g) {
-    const long long base = g * S::GV;
-    const int head = head_of(base);
-    const uint8_t* src = codes + base - head;
-    uint8_t* dst = codebufs + b * S::kCodeBytes;
-    const int nbytes = head + (int)(total - base < S::GV ? total - base : S::GV);
-    for (int w = threadIdx.x; w * 4 < nbytes; w += kThreads) {
-      if ((w == 0 && head) || w * 4 + 4 > nbytes) {
-        for (int j = w * 4 > head ? w * 4 : head; j < w * 4 + 4 && j < nbytes; ++j) dst[j] = src[j];
-      } else {
-        cp_async4(dst + w * 4, src + w * 4);
-      }
-    }
-    float* anc = ancbufs + b * (kAnc / 4);
-    for (int j = threadIdx.x; j < S::G * S::NA; j += kThreads) {
-      const long long blk = g * S::G + j / S::NA;
-      if (blk < nb) cp_async4(anc + j, anchors + blk * S::NA + j % S::NA);
-    }
-    cp_async_commit();
-  };
   if (threadIdx.x == 0) cursor0 = lower_bound(okeys, n_out, g0 * S::GV);
-  if constexpr (PF) fetch(0, g0);
   __syncthreads();
   long long cur = cursor0;  // the first outlier not yet placed; keys ascend
-  int buf = 0;
-  for (long long g = g0; g < g1; ++g, buf ^= 1) {
+  for (long long g = g0; g < g1; ++g) {
     const long long base = g * S::GV;
-    const long long key_end = base + S::GV < total ? base + S::GV : total;
-    uint8_t* code = codebufs + (PF ? buf * S::kCodeBytes + head_of(base) : 0);
-    const float* anc = ancbufs + (PF ? buf * (kAnc / 4) : 0);
-    if constexpr (PF) {
-      cp_async_wait_all();
-      for (int i = threadIdx.x; i < S::GV; i += kThreads) tile[i] = 0.0f;
-    } else {
-#pragma unroll 4
-      for (int i = threadIdx.x; i < S::GV; i += kThreads) {
-        code[i] = base + i < total ? codes[base + i] : kCenter;
-        tile[i] = 0.0f;  // a code-0 point without a stored value replays as 0
-      }
+    const int n = total - base < S::GV ? (int)(total - base) : S::GV;  // points of this group in the batch
+    const long long key_end = base + n;
+    const uint8_t* src = codes + base;
+#pragma unroll 8
+    for (int i = threadIdx.x; i < S::GV; i += kThreads) {
+      code[i] = i < n ? src[i] : kCenter;
+      tile[i] = 0.0f;  // a code-0 point without a stored value replays as 0
     }
     long long k = cur + threadIdx.x;
     long long key = k < n_out ? okeys[k] : key_end;
     __syncthreads();
-    if constexpr (PF) {
-      if (g + 1 < g1) fetch(buf ^ 1, g + 1);
-    }
     for (int j = threadIdx.x; j < S::G * S::NA; j += kThreads) {
       const long long b = g * S::G + j / S::NA;
-      if (b < nb)
-        tile[(j / S::NA) * S::V + anchor_index<NDIM, EVERY>(j % S::NA)] = PF ? anc[j] : anchors[b * S::NA + j % S::NA];
+      if (b < nb) tile[(j / S::NA) * S::V + anchor_index<NDIM, EVERY>(j % S::NA)] = anchors[b * S::NA + j % S::NA];
     }
     // this group's outliers, in rounds of kThreads keys; the last round is short
     for (;;) {
@@ -381,40 +316,37 @@ interp_decode_kernel(const uint8_t* __restrict__ codes, const float* __restrict_
         const int at = (int)(key - base);
         if (code[at] == 0 && !is_anchor<NDIM, EVERY>(at % S::V)) tile[at] = ovals[k];
       }
-      const int n = __syncthreads_count(mine);
-      cur += n;
-      if (n < kThreads) break;
+      const int placed = __syncthreads_count(mine);
+      cur += placed;
+      if (placed < kThreads) break;
       k = cur + threadIdx.x;
       key = k < n_out ? okeys[k] : key_end;
     }
-    run_steps<NDIM, EVERY, false>(tb, n_steps, n_warp_steps, tile, code, twoeb, 0.0f);
-    for (int i = threadIdx.x; i < S::GV; i += kThreads)
-      if (base + i < total) recon[base + i] = tile[i];
+    run_steps<NDIM, EVERY, false>(tb, n_steps, tile, code, twoeb, 0.0f);
+    for (int i = threadIdx.x; i < n; i += kThreads) recon[base + i] = tile[i];
   }
 }
 
-// Dynamic shared memory of the two kernels.
-template <int NDIM, int EVERY, bool PF>
-constexpr int encode_smem() {
+// Dynamic shared memory of both kernels: the tables, the tile and the codes.
+template <int NDIM, int EVERY>
+constexpr int smem_bytes() {
   using S = Shape<NDIM, EVERY>;
-  return S::kTableBytes + (PF ? 2 : 1) * S::kTileBytes + S::kCodeBytes;
-}
-template <int NDIM, int EVERY, bool PF>
-constexpr int decode_smem() {
-  using S = Shape<NDIM, EVERY>;
-  return S::kTableBytes + S::kTileBytes + (PF ? 2 : 1) * S::kCodeBytes + (PF ? 2 * round_up(S::G * S::NA * 4, 16) : 0);
+  return S::kTableBytes + S::kTileBytes + S::kCodeBytes;
 }
 
-// Launches `kern` with one CTA per resident slot (at most one per group).
+// Launches `kern` with one CTA per resident slot (at most one per group),
+// with the SM's L1/shared split set to the most shared memory, so that as
+// many CTAs are resident as the occupancy query counts.
 template <typename Kernel, typename... Args>
 int launch_persistent(Kernel kern, int smem, long long groups, cudaStream_t stream, Args... args) {
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared);
   int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) return (int)err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads, smem)) != cudaSuccess)
-    return (int)err;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads, smem);
+  if (err != cudaSuccess) return (int)err;
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
   const long long slots = (long long)per_sm * sms;
   const unsigned grid = (unsigned)(groups < slots ? groups : slots);
@@ -424,34 +356,23 @@ int launch_persistent(Kernel kern, int smem, long long groups, cudaStream_t stre
 
 template <int NDIM, int EVERY>
 int encode(const float* blocks, uint8_t* codes, float* recon, long long nb, float twoeb, float inv2eb,
-           const int* image, int n_steps, int n_warp_steps, int prefetch, cudaStream_t stream) {
+           const int* image, int n_steps, cudaStream_t stream) {
   using S = Shape<NDIM, EVERY>;
-  const long long groups = (nb + S::G - 1) / S::G;
-  if (prefetch)
-    return launch_persistent(interp_encode_kernel<NDIM, EVERY, true>, encode_smem<NDIM, EVERY, true>(), groups,
-                             stream, blocks, codes, recon, nb, twoeb, inv2eb, image, n_steps, n_warp_steps);
-  return launch_persistent(interp_encode_kernel<NDIM, EVERY, false>, encode_smem<NDIM, EVERY, false>(), groups,
-                           stream, blocks, codes, recon, nb, twoeb, inv2eb, image, n_steps, n_warp_steps);
+  return launch_persistent(interp_encode_kernel<NDIM, EVERY>, smem_bytes<NDIM, EVERY>(), (nb + S::G - 1) / S::G,
+                           stream, blocks, codes, recon, nb, twoeb, inv2eb, image, n_steps);
 }
 
 template <int NDIM, int EVERY>
 int decode(const uint8_t* codes, const float* anchors, const long long* okeys, const float* ovals, long long n_out,
-           float* recon, long long nb, float twoeb, const int* image, int n_steps, int n_warp_steps, int prefetch,
-           cudaStream_t stream) {
+           float* recon, long long nb, float twoeb, const int* image, int n_steps, cudaStream_t stream) {
   using S = Shape<NDIM, EVERY>;
-  const long long groups = (nb + S::G - 1) / S::G;
-  if (prefetch)
-    return launch_persistent(interp_decode_kernel<NDIM, EVERY, true>, decode_smem<NDIM, EVERY, true>(), groups,
-                             stream, codes, anchors, okeys, ovals, n_out, recon, nb, twoeb, image, n_steps,
-                             n_warp_steps);
-  return launch_persistent(interp_decode_kernel<NDIM, EVERY, false>, decode_smem<NDIM, EVERY, false>(), groups,
-                           stream, codes, anchors, okeys, ovals, n_out, recon, nb, twoeb, image, n_steps,
-                           n_warp_steps);
+  return launch_persistent(interp_decode_kernel<NDIM, EVERY>, smem_bytes<NDIM, EVERY>(), (nb + S::G - 1) / S::G,
+                           stream, codes, anchors, okeys, ovals, n_out, recon, nb, twoeb, image, n_steps);
 }
 
 template <int NDIM, int EVERY>
-bool steps_fit(int n_steps, int n_warp_steps) {
-  return n_steps >= 1 && n_steps <= Shape<NDIM, EVERY>::MAXS && n_warp_steps >= 0 && n_warp_steps <= n_steps;
+bool steps_fit(int n_steps) {
+  return n_steps >= 1 && n_steps <= Shape<NDIM, EVERY>::MAXS;
 }
 
 }  // namespace
@@ -485,13 +406,11 @@ extern "C" int interp_table_words(int ndim, int every) {
 
 // `recon` may be null: the encoder then writes the codes only.
 extern "C" int interp_encode(const float* blocks, uint8_t* codes, float* recon, long long nb, int ndim, int every,
-                             float twoeb, float inv2eb, const int* image, int n_steps, int n_warp_steps,
-                             int prefetch, void* stream) {
+                             float twoeb, float inv2eb, const int* image, int n_steps, void* stream) {
   if (nb <= 0) return (int)cudaErrorInvalidValue;
 #define ENC(N, E)                                                                                          \
-  (steps_fit<N, E>(n_steps, n_warp_steps)                                                                  \
-       ? encode<N, E>(blocks, codes, recon, nb, twoeb, inv2eb, image, n_steps, n_warp_steps, prefetch,     \
-                      (cudaStream_t)stream)                                                                \
+  (steps_fit<N, E>(n_steps)                                                                                \
+       ? encode<N, E>(blocks, codes, recon, nb, twoeb, inv2eb, image, n_steps, (cudaStream_t)stream)       \
        : (int)cudaErrorInvalidValue)
   INTERP_DISPATCH(ndim, every, ENC, (int)cudaErrorInvalidValue)
 #undef ENC
@@ -500,12 +419,12 @@ extern "C" int interp_encode(const float* blocks, uint8_t* codes, float* recon, 
 // `anchors`: nb x (16/every + 1)^ndim; `okeys` ascending, n_out of them.
 extern "C" int interp_decode(const uint8_t* codes, const float* anchors, const long long* okeys, const float* ovals,
                              long long n_out, float* recon, long long nb, int ndim, int every, float twoeb,
-                             const int* image, int n_steps, int n_warp_steps, int prefetch, void* stream) {
+                             const int* image, int n_steps, void* stream) {
   if (nb <= 0 || n_out < 0) return (int)cudaErrorInvalidValue;
 #define DEC(N, E)                                                                                          \
-  (steps_fit<N, E>(n_steps, n_warp_steps)                                                                  \
-       ? decode<N, E>(codes, anchors, okeys, ovals, n_out, recon, nb, twoeb, image, n_steps, n_warp_steps, \
-                      prefetch, (cudaStream_t)stream)                                                      \
+  (steps_fit<N, E>(n_steps)                                                                                \
+       ? decode<N, E>(codes, anchors, okeys, ovals, n_out, recon, nb, twoeb, image, n_steps,               \
+                      (cudaStream_t)stream)                                                                \
        : (int)cudaErrorInvalidValue)
   INTERP_DISPATCH(ndim, every, DEC, (int)cudaErrorInvalidValue)
 #undef DEC

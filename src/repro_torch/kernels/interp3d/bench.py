@@ -10,9 +10,7 @@ schemes, anchor stride, bound), gathers its 17^3 blocks, and times
 against the plain predictor, the decode against the encoder's recon, bit
 for bit. ``--src`` names the ``src`` directory whose ``repro_torch`` is
 timed (default: this checkout's), so one call can time two checkouts in
-turns. Where that package has the coarse warp steps, they are also timed
-switched off (``n_warp_steps`` 0), as a measurement of that design point.
-Prints one JSON line.
+turns. Prints one JSON line.
 """
 from __future__ import annotations
 
@@ -97,32 +95,12 @@ def main() -> int:
     decode_equal = torch.equal(ops.decompress_blocks(codes, *dec_in, twoeb, steps, stride), recon)
     del recon
 
-    def times() -> dict:
-        return {"encode_ms": cuda_ms(lambda: ops.compress_blocks(blocks, twoeb, steps, stride, with_recon=False),
-                                     args.iters),
-                "decode_ms": cuda_ms(lambda: ops.decompress_blocks(codes, *dec_in, twoeb, steps, stride),
-                                     args.iters)}
-
     out = {"src": args.src, "card": card, "nb": int(blocks.shape[0]), "anchor_stride": stride,
            "splines": header["splines"], "schemes": header["schemes"], "n_outliers": int(dec_in[1].numel()),
-           "codes_equal_plain": codes_equal, "decode_equal_recon": decode_equal, **times()}
-    if "_prefetch" in ops.compress_blocks.__kwdefaults__:
-        pc, _ = ops.compress_blocks(blocks, twoeb, steps, stride, with_recon=False, _prefetch=True)
-        pd = ops.decompress_blocks(codes, *dec_in, twoeb, steps, stride, _prefetch=True)
-        out["prefetch_equal"] = torch.equal(pc, codes) and torch.equal(pd, ops.decompress_blocks(codes, *dec_in, twoeb,
-                                                                                                   steps, stride))
-        out["prefetch"] = {
-            "encode_ms": cuda_ms(lambda: ops.compress_blocks(blocks, twoeb, steps, stride, with_recon=False,
-                                                             _prefetch=True), args.iters),
-            "decode_ms": cuda_ms(lambda: ops.decompress_blocks(codes, *dec_in, twoeb, steps, stride, _prefetch=True),
-                                 args.iters)}
-    tables = ops._device_tables(steps, stride, str(device))
-    if "n_warp_steps" in tables:
-        n_warp = tables["n_warp_steps"]
-        tables["n_warp_steps"] = 0
-        out["no_warp_steps"] = times()
-        tables["n_warp_steps"] = n_warp
-        out["n_warp_steps"] = n_warp
+           "codes_equal_plain": codes_equal, "decode_equal_recon": decode_equal,
+           "encode_ms": cuda_ms(lambda: ops.compress_blocks(blocks, twoeb, steps, stride, with_recon=False),
+                                args.iters),
+           "decode_ms": cuda_ms(lambda: ops.decompress_blocks(codes, *dec_in, twoeb, steps, stride), args.iters)}
     line = json.dumps(out)
     print(line)
     if args.out:

@@ -25,7 +25,6 @@ from ..build import library
 
 LAUNCHES = {"interp_encode": 0, "interp_decode": 0}
 ANCHOR_STRIDES = (16, 8, 4)  # the kernels' instantiations
-MAX_WARP_STEP = 64  # a leading step with at most this many targets runs in one warp
 MAX_PATTERNS = 4  # distinct rows (tap offsets and coefficients) of one level's operator
 
 
@@ -68,10 +67,8 @@ def pack_steps(steps: tuple[Step, ...], anchor_every: int) -> dict:
     per step, its level's index; ``meta`` (i32): per level and operator row,
     the banded row's tap count | column t << (3 + 5 t) | pattern << 23, and
     ``coef`` (f32): per level and pattern (distinct row), its coefficients,
-    in the plain predictor's order (``banded_rows``). ``n_warp_steps``: the
-    leading steps of at most ``MAX_WARP_STEP`` targets, which a 3-D block
-    runs in one warp. ``image``: all of it as the int32 words the kernels
-    copy into shared memory.
+    in the plain predictor's order (``banded_rows``). ``image``: all of it
+    as the int32 words the kernels copy into shared memory.
 
     Raises ValueError when the steps do not have the shape the kernels
     assume: 17^ndim blocks, ndim 1..3, an anchor stride of 16, 8 or 4 with
@@ -136,8 +133,6 @@ def pack_steps(steps: tuple[Step, ...], anchor_every: int) -> dict:
         step_op.append(op)
     if not done.all():
         raise ValueError("the steps leave points without a prediction")
-    sizes = np.diff(off)
-    n_warp = int(np.argmax(sizes > MAX_WARP_STEP)) if (sizes > MAX_WARP_STEP).any() else len(steps)
     max_steps = ndim * len(levels)
     pts = np.concatenate(pts).astype(np.uint16)
     image = np.concatenate([
@@ -150,7 +145,6 @@ def pack_steps(steps: tuple[Step, ...], anchor_every: int) -> dict:
         "ndim": ndim,
         "every": every,
         "n_steps": len(steps),
-        "n_warp_steps": n_warp,
         "pts": pts,
         "step_off": np.asarray(off, np.int32),
         "step_op": np.asarray(step_op, np.int32),
@@ -200,7 +194,7 @@ def _check_stride(anchor_every) -> None:
 def _lib():
     lib = library("interp3d")
     vp, i64, i32, f = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
-    tables = [vp, i32, i32, i32, vp]  # image n_steps n_warp_steps prefetch stream
+    tables = [vp, i32, vp]  # image n_steps stream
     lib.interp_table_words.argtypes = [i32, i32]
     lib.interp_table_words.restype = ctypes.c_int
     lib.interp_encode.argtypes = [vp, vp, vp, i64, i32, i32, f, f] + tables
@@ -210,13 +204,13 @@ def _lib():
     return lib
 
 
-def _table_args(tb: dict, device, prefetch: bool) -> list:
+def _table_args(tb: dict, device) -> list:
     stream = torch.cuda.current_stream(device).cuda_stream
-    return [_p(tb["image"]), tb["n_steps"], tb["n_warp_steps"], int(prefetch), ctypes.c_void_p(stream)]
+    return [_p(tb["image"]), tb["n_steps"], ctypes.c_void_p(stream)]
 
 
 def compress_blocks(blocks: torch.Tensor, twoeb: float, steps: tuple[Step, ...], anchor_every: int = 16,
-                    *, with_recon: bool = True, _prefetch: bool = False):
+                    *, with_recon: bool = True):
     """(nb, 17..) f32 blocks -> (codes u8, recon f32), same shape; the
     outliers are the code-0 points. ``with_recon=False`` returns recon None
     and the kernel writes the codes only."""
@@ -237,7 +231,7 @@ def compress_blocks(blocks: torch.Tensor, twoeb: float, steps: tuple[Step, ...],
     with torch.cuda.device(blocks.device):
         rc = _lib().interp_encode(_p(blocks), _p(codes), None if recon is None else _p(recon), nb, tb["ndim"],
                                   int(anchor_every), float(tw), float(np.float32(1.0) / tw),
-                                  *_table_args(tb, blocks.device, _prefetch))
+                                  *_table_args(tb, blocks.device))
     if rc != 0:
         raise RuntimeError(f"interp_encode launch failed with CUDA error {rc}")
     LAUNCHES["interp_encode"] += 1
@@ -245,8 +239,7 @@ def compress_blocks(blocks: torch.Tensor, twoeb: float, steps: tuple[Step, ...],
 
 
 def decompress_blocks(codes: torch.Tensor, anchors: torch.Tensor, out_keys: torch.Tensor, out_vals: torch.Tensor,
-                      twoeb: float, steps: tuple[Step, ...], anchor_every: int = 16, *,
-                      _prefetch: bool = False) -> torch.Tensor:
+                      twoeb: float, steps: tuple[Step, ...], anchor_every: int = 16) -> torch.Tensor:
     """Replay: (nb, 17..) u8 codes, the blocks' anchors (nb, A..) f32 with
     A = 16 // anchor_every + 1, and the outliers as int64 keys
     ``block * 17**ndim + cell`` (unique, any order) with their f32 values
@@ -269,7 +262,7 @@ def decompress_blocks(codes: torch.Tensor, anchors: torch.Tensor, out_keys: torc
     vals = out_vals[order]
     with torch.cuda.device(codes.device):
         rc = _lib().interp_decode(_p(codes), _p(anchors), _p(keys), _p(vals), int(keys.numel()), _p(recon), nb,
-                                  ndim, int(anchor_every), float(np.float32(twoeb)), *_table_args(tb, codes.device, _prefetch))
+                                  ndim, int(anchor_every), float(np.float32(twoeb)), *_table_args(tb, codes.device))
     if rc != 0:
         raise RuntimeError(f"interp_decode launch failed with CUDA error {rc}")
     LAUNCHES["interp_decode"] += 1

@@ -90,7 +90,8 @@ def _kernel_emulation(blocks, codes_in, twoeb, steps, stride, decode=False):
     tables exactly as csrc/interp3d.cu reads them: one tile per block,
     updated in place, step after step; per target point, pred = sum over
     its used dims (u16 point word: index | dims mask << 13) of w * (sum of
-    tap products), w = 1 / (used dims), each operation rounded to float32;
+    tap products; columns from the row's word, coefficients from its
+    pattern), w = 1 / (used dims), each operation rounded to float32;
     then quantize against the original value in the tile and overwrite it
     (encode), or replay the code, a code-0 point keeping the outlier value
     placed before the first step (decode). Vectorized over blocks and over
