@@ -262,7 +262,7 @@ def interp_ops(tables: dict) -> tuple[int, int]:
     for k in range(tables["n_steps"]):
         pk = pts[tables["step_off"][k]: tables["step_off"][k + 1]]
         idx, dmask = pk & 0x1FFF, pk >> 13
-        taps = (tables["coef"][tables["step_op"][k]] != 0).sum(1)[tables["row"][tables["step_op"][k]]]
+        taps = tables["meta"][tables["step_op"][k]] & 7
         c = np.stack(np.unravel_index(idx, (17, 17, 17)))
         for d in range(3):
             on = (dmask >> d & 1) == 1

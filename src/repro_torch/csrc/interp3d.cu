@@ -26,11 +26,10 @@
 // - The step tables live in shared memory, loaded once per CTA: per target
 //   point 2 B (flat index | used-dims mask << 13; the blend weight is
 //   1 / popcount(mask)), a step's points sorted by their mask so that a
-//   warp's threads take the same dims; per level and operator row its
-//   pattern, and per level and pattern (distinct row, at most 4) a float4 of
-//   coefficients and the four tap offsets as signed bytes, so a warp's
-//   table loads touch few distinct words and a tap costs a byte extract,
-//   a multiply-add, its load and the two float operations.
+//   warp's threads take the same dims; per level and operator row one
+//   32-bit word (tap count, columns and pattern), and per level and pattern
+//   (distinct row, at most 4) one float4 of coefficients, so a warp's
+//   coefficient loads touch few distinct words.
 // - Persistent CTAs: the host launches as many CTAs as are resident at once
 //   and each walks a contiguous run of blocks, so the tables are loaded once
 //   per CTA and the decoder finds each block's outliers with a cursor that
@@ -80,13 +79,12 @@ struct Shape {
   static constexpr int G = kThreads / TPB;                  // blocks per CTA
   static constexpr int GV = G * V;                          // tile points per CTA
   // the table image, int32 words in this order (ops.py packs the same):
-  // coef [L][kPatterns][4] f32, offs [L][kPatterns], row [L][kB],
-  // step_off [MAXS + 1], step_op [MAXS], pts [NP rounded up to even] u16
+  // coef [L][kPatterns][4] f32, meta [L][kB], step_off [MAXS + 1],
+  // step_op [MAXS], pts [NP rounded up to even] u16
   static constexpr int kCoefWords = L * kPatterns * 4;
-  static constexpr int kOffsWords = L * kPatterns;
-  static constexpr int kRowWords = L * kB;
+  static constexpr int kMetaWords = L * kB;
   static constexpr int kPtsWords = (NP + 1) / 2;
-  static constexpr int kTableWords = kCoefWords + kOffsWords + kRowWords + (MAXS + 1) + MAXS + kPtsWords;
+  static constexpr int kTableWords = kCoefWords + kMetaWords + (MAXS + 1) + MAXS + kPtsWords;
   static constexpr int kTableBytes = round_up(kTableWords * 4, 16);
   static constexpr int kTileBytes = round_up(GV * 4, 16);
   static constexpr int kCodeBytes = round_up(GV, 16);
@@ -95,18 +93,16 @@ struct Shape {
 template <int NDIM, int EVERY>
 struct Tables {
   using S = Shape<NDIM, EVERY>;
-  const float4* coef;  // [L][kPatterns]: tap coefficients, 0 beyond the row's taps
-  const int* offs;     // [L][kPatterns]: tap t's offset col - c, signed byte t
-  const int* row;      // [L][kB]: pattern of operator row c
+  const float4* coef;  // [L][kPatterns]
+  const int* meta;     // [L][kB]: tap count | column t << (3 + 5 t) | pattern << 23
   const int* step_off;
   const int* step_op;
   const uint16_t* pts;
 
   __device__ explicit Tables(const unsigned char* base)
       : coef(reinterpret_cast<const float4*>(base)),
-        offs(reinterpret_cast<const int*>(base) + S::kCoefWords),
-        row(offs + S::kOffsWords),
-        step_off(row + S::kRowWords),
+        meta(reinterpret_cast<const int*>(base) + S::kCoefWords),
+        step_off(meta + S::kMetaWords),
         step_op(step_off + S::MAXS + 1),
         pts(reinterpret_cast<const uint16_t*>(step_op + S::MAXS)) {}
 };
@@ -118,20 +114,11 @@ __device__ __forceinline__ void load_tables(unsigned char* smem, const int* __re
   for (int i = threadIdx.x; i < Shape<NDIM, EVERY>::kTableWords; i += kThreads) dst[i] = image[i];
 }
 
-// One level's operator, as the kernels read it from shared memory.
-struct Op {
-  const float4* coef;  // [kPatterns]
-  const int* offs;     // [kPatterns]
-  const int* row;      // [kB]
-};
-
 // pred = sum over used dims d (ascending) of w * (sum over taps of coef * tile[tap]),
-// w = 1 / (number of used dims), each product and sum rounded to fp32 on its
-// own. Every row takes four taps: those beyond its count have coefficient 0
-// and offset 0, and add 0 * (the target's own finite tile value), which
-// leaves the sum as it is, as the plain predictor's zero-padded taps do.
+// w = 1 / (number of used dims), each product and sum rounded to fp32 on its own.
 template <int NDIM>
-__device__ __forceinline__ float predict(const float* tile, int idx, int dmask, const Op& op) {
+__device__ __forceinline__ float predict(const float* tile, int idx, int dmask, const float4* coef,
+                                         const int* meta) {
   int c[NDIM];
   int rem = idx;
 #pragma unroll
@@ -142,20 +129,20 @@ __device__ __forceinline__ float predict(const float* tile, int idx, int dmask, 
   }
   const int used = __popc(dmask);
   const float w = used == 1 ? 1.0f : (used == 2 ? 0.5f : 0x1.555556p-2f);  // fp32(1/3), as the tables hold
-  const float* at = tile + idx;
   float pred = 0.0f;
 #pragma unroll
   for (int d = 0; d < NDIM; ++d) {
     if (dmask & (1 << d)) {
       const int sd = stride_of<NDIM>(d);
-      const int pat = op.row[c[d]];
-      const float4 k = op.coef[pat];
-      const int o = op.offs[pat];
+      const int m = meta[c[d]];
+      const float4 k = coef[(m >> 23) & (kPatterns - 1)];
+      const int n = m & 7;
+      const float* row = tile + (idx - c[d] * sd);
       float acc = 0.0f;
-      acc = __fadd_rn(acc, __fmul_rn(k.x, at[(int)(int8_t)o * sd]));
-      acc = __fadd_rn(acc, __fmul_rn(k.y, at[(int)(int8_t)(o >> 8) * sd]));
-      acc = __fadd_rn(acc, __fmul_rn(k.z, at[(int)(int8_t)(o >> 16) * sd]));
-      acc = __fadd_rn(acc, __fmul_rn(k.w, at[(o >> 24) * sd]));
+      if (n > 0) acc = __fadd_rn(acc, __fmul_rn(k.x, row[((m >> 3) & 31) * sd]));
+      if (n > 1) acc = __fadd_rn(acc, __fmul_rn(k.y, row[((m >> 8) & 31) * sd]));
+      if (n > 2) acc = __fadd_rn(acc, __fmul_rn(k.z, row[((m >> 13) & 31) * sd]));
+      if (n > 3) acc = __fadd_rn(acc, __fmul_rn(k.w, row[((m >> 18) & 31) * sd]));
       pred = __fadd_rn(pred, __fmul_rn(w, acc));
     }
   }
@@ -169,14 +156,15 @@ __device__ __forceinline__ float predict(const float* tile, int idx, int dmask, 
 template <int NDIM, int EVERY, bool ENCODE>
 __device__ __forceinline__ void run_step(const Tables<NDIM, EVERY>& tb, int k, int lane, int lanes, float* tile,
                                          uint8_t* code, float twoeb, float inv2eb) {
-  const int level = tb.step_op[k];
-  const Op op{tb.coef + level * kPatterns, tb.offs + level * kPatterns, tb.row + level * kB};
+  const int op = tb.step_op[k];
+  const float4* coef = tb.coef + op * kPatterns;
+  const int* meta = tb.meta + op * kB;
   const int end = tb.step_off[k + 1];
   for (int p = tb.step_off[k] + lane; p < end; p += lanes) {
     const int pt = tb.pts[p];
     const int idx = pt & 0x1FFF;
     if constexpr (ENCODE) {
-      const float pred = predict<NDIM>(tile, idx, pt >> 13, op);
+      const float pred = predict<NDIM>(tile, idx, pt >> 13, coef, meta);
       const float o = tile[idx];
       // quantize_pred: q = rint((orig - pred) * inv2eb); outlier iff |q| > 127
       const float q = rintf(__fmul_rn(__fsub_rn(o, pred), inv2eb));
@@ -186,7 +174,7 @@ __device__ __forceinline__ void run_step(const Tables<NDIM, EVERY>& tb, int k, i
     } else {
       const int c = code[idx];
       if (c != 0) {
-        const float pred = predict<NDIM>(tile, idx, pt >> 13, op);
+        const float pred = predict<NDIM>(tile, idx, pt >> 13, coef, meta);
         tile[idx] = __fadd_rn(pred, __fmul_rn((float)(c - kCenter), twoeb));
       }
     }

@@ -28,29 +28,24 @@ ANCHOR_STRIDES = (16, 8, 4)  # the kernels' instantiations
 MAX_PATTERNS = 4  # distinct rows (tap offsets and coefficients) of one level's operator
 
 
-def _pack_rows(M: np.ndarray) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """One operator's rows as patterns (the distinct rows: tap offsets from
-    the target and coefficients, taps beyond a row's count zero): per row c
-    its pattern's index, and per pattern its coefficients and its offsets
-    col - c as four signed bytes. Rows without taps (never a target's) take
-    pattern 0."""
+def _pack_rows(M: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """One operator's rows: per row c the word tap count | column t << (3 + 5 t)
+    | pattern << 23, and per pattern (the distinct (offsets, coefficients)
+    rows) its coefficients."""
     n, cols, cf = _plain.banded_rows(M)
-    row = np.zeros(M.shape[0], np.int32)
+    meta = np.zeros(M.shape[0], np.int32)
     coef = np.zeros((MAX_PATTERNS, _plain.MAX_TAPS), np.float32)
-    offs = np.zeros(MAX_PATTERNS, np.int32)
     patterns: list[tuple] = []
-    for c in np.flatnonzero(n):
-        rel = cols[c, : n[c]] - c
-        key = (tuple(rel), tuple(cf[c, : n[c]].tolist()))
+    for c in range(M.shape[0]):
+        key = (tuple(cols[c, : n[c]] - c), tuple(cf[c, : n[c]].tolist()))
         if key not in patterns:
             if len(patterns) == MAX_PATTERNS:
                 raise ValueError(f"an operator has more than {MAX_PATTERNS} distinct rows")
             coef[len(patterns)] = cf[c]
-            offs[len(patterns)] = np.pad(rel, (0, _plain.MAX_TAPS - rel.size)).astype(np.int8).view(np.int32)[0]
             patterns.append(key)
-        row[c] = patterns.index(key)
-    return row, coef, offs
-
+        meta[c] = int(n[c]) | sum(int(cols[c, t]) << (3 + 5 * t) for t in range(_plain.MAX_TAPS)) \
+            | patterns.index(key) << 23
+    return meta, coef
 
 def _levels(every: int) -> tuple[int, ...]:
     return tuple(every >> i for i in range(1, every.bit_length()))
@@ -69,11 +64,10 @@ def pack_steps(steps: tuple[Step, ...], anchor_every: int) -> dict:
     ``pts`` (u16): per target point, step after step (``step_off``
     delimits them) and within a step by used dims, its flat index | used-dims
     mask << 13; its blend weight is 1 / (number of used dims). ``step_op``:
-    per step, its level's index. Per level, ``row`` (i32): each operator
-    row's pattern (distinct row), and per pattern ``coef`` (f32, taps beyond
-    the row's count zero) and ``offs`` (i32: the taps' offsets col - c as
-    four signed bytes), in the plain predictor's tap order (``banded_rows``).
-    ``image``: all of it
+    per step, its level's index; ``meta`` (i32): per level and operator row,
+    the banded row's tap count | column t << (3 + 5 t) | pattern << 23, and
+    ``coef`` (f32): per level and pattern (distinct row), its coefficients,
+    in the plain predictor's order (``banded_rows``). ``image``: all of it
     as the int32 words the kernels copy into shared memory.
 
     Raises ValueError when the steps do not have the shape the kernels
@@ -95,9 +89,8 @@ def pack_steps(steps: tuple[Step, ...], anchor_every: int) -> dict:
         raise ValueError(f"{len(steps)} steps; the kernels take at most {ndim * len(levels)}")
     coords = _coords(ndim)
     sd = 17 ** np.arange(ndim - 1, -1, -1)
-    row = np.zeros((len(levels), B), np.int32)
+    meta = np.zeros((len(levels), B), np.int32)
     coef = np.zeros((len(levels), MAX_PATTERNS, _plain.MAX_TAPS), np.float32)
-    offs = np.zeros((len(levels), MAX_PATTERNS), np.int32)
     ops = [None] * len(levels)
     done = np.all(coords % every == 0, axis=0)  # anchors
     pts, off, step_op = [], [0], []
@@ -113,7 +106,7 @@ def pack_steps(steps: tuple[Step, ...], anchor_every: int) -> dict:
             raise ValueError("interp kernels need one operator per level")
         if ops[op] is None:
             ops[op] = M0
-            row[op], coef[op], offs[op] = _pack_rows(M0)
+            meta[op], coef[op] = _pack_rows(M0)
         n, cols, _ = _plain.banded_rows(M0)
         idx = np.flatnonzero(st.mask.reshape(-1))
         if done[idx].any():
@@ -143,7 +136,7 @@ def pack_steps(steps: tuple[Step, ...], anchor_every: int) -> dict:
     max_steps = ndim * len(levels)
     pts = np.concatenate(pts).astype(np.uint16)
     image = np.concatenate([
-        coef.reshape(-1).view(np.int32), offs.reshape(-1), row.reshape(-1),
+        coef.reshape(-1).view(np.int32), meta.reshape(-1),
         np.pad(np.asarray(off, np.int32), (0, max_steps + 1 - len(off)), mode="edge"),
         np.pad(np.asarray(step_op, np.int32), (0, max_steps - len(step_op))),
         np.pad(pts, (0, pts.size % 2)).view(np.int32),
@@ -155,9 +148,8 @@ def pack_steps(steps: tuple[Step, ...], anchor_every: int) -> dict:
         "pts": pts,
         "step_off": np.asarray(off, np.int32),
         "step_op": np.asarray(step_op, np.int32),
-        "row": row,
+        "meta": meta,
         "coef": coef,
-        "offs": offs,
         "image": image,
     }
 

@@ -90,7 +90,7 @@ def _kernel_emulation(blocks, codes_in, twoeb, steps, stride, decode=False):
     tables exactly as csrc/interp3d.cu reads them: one tile per block,
     updated in place, step after step; per target point, pred = sum over
     its used dims (u16 point word: index | dims mask << 13) of w * (sum of
-    four tap products, offsets and coefficients from the operator row's
+    tap products; columns from the row's word, coefficients from its
     pattern), w = 1 / (used dims), each operation rounded to float32;
     then quantize against the original value in the tile and overwrite it
     (encode), or replay the code, a code-0 point keeping the outlier value
@@ -122,18 +122,21 @@ def _kernel_emulation(blocks, codes_in, twoeb, steps, stride, decode=False):
     for k in range(tb["n_steps"]):
         pk = pts[tb["step_off"][k]: tb["step_off"][k + 1]]
         idx, dmask = pk & 0x1FFF, pk >> 13
-        row, coef = tb["row"][tb["step_op"][k]], tb["coef"][tb["step_op"][k]]
-        offs = tb["offs"][tb["step_op"][k]].view(np.int8).reshape(-1, 4).astype(np.int64)
+        meta, coef = tb["meta"][tb["step_op"][k]], tb["coef"][tb["step_op"][k]]
         used = np.array([bin(m).count("1") for m in dmask])
         w = np.where(used == 1, np.float32(1), np.where(used == 2, np.float32(0.5), np.float32(1) / np.float32(3)))
         w = w.astype(np.float32)
         pred = np.zeros((nb, idx.size), np.float32)
         for d in range(ndim):
             on = (dmask >> d & 1) == 1
-            pat = row[coords[d, idx]]
+            c = coords[d, idx]
+            base = idx - c * sd[d]
             acc = np.zeros((nb, idx.size), np.float32)
-            for t in range(4):  # taps beyond a row's count: coefficient 0 on the target itself
-                acc = acc + coef[pat, t] * tile[:, np.where(on, idx + offs[pat, t] * sd[d], idx)]
+            for t in range(4):
+                has = on & ((meta[c] & 7) > t)
+                col = (meta[c] >> (3 + 5 * t)) & 31
+                term = coef[(meta[c] >> 23) & 3, t] * tile[:, np.where(has, base + col * sd[d], 0)]
+                acc = np.where(has, acc + term, acc)
             pred = np.where(on, pred + w * acc, pred)
         if decode:
             q = codes[:, idx].astype(np.int32) - 128
