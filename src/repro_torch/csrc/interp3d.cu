@@ -6,14 +6,14 @@
 // The decode kernel is the replay of repro.core.predictor.decompress_blocks,
 // which the TPU package runs as plain jnp.
 //
-// What bounds it on the H100: memory, in principle. Encode reads the f32
-// block and writes the u8 codes (5 B per block point), plus the f32 recon
-// when the caller asks for it; decode reads the u8 codes, the block's few
-// anchors and its outliers, and writes the f32 recon (about 5 B per point).
-// The arithmetic is at most 12 multiply-adds per point, about one operation
-// per byte, far below the card's ~20 fp32 operations per byte. In practice
-// the per-point work is index math, table reads and barriers, so the design
-// keeps all of those on chip and cheap:
+// What bounds it on the H100: by bytes, device memory (encode reads the
+// f32 block and writes the u8 codes, 5 B per block point, plus the f32
+// recon when asked; decode reads the u8 codes, the block's few anchors and
+// its outliers and writes the f32 recon); the arithmetic is at most 12
+// multiply-adds per point, far below the card's fp32 rate. In practice the
+// limit is on chip: every tap is a shared-memory load, and the per-point
+// index math and table reads come with it. So the design keeps all of that
+// in shared memory and spends it carefully:
 //
 // - The shape is a compile-time constant: both kernels are templates on the
 //   block rank (1-3) and the anchor stride (16, 8, 4), so every division of
@@ -25,11 +25,16 @@
 //   the decoder places anchors and outliers first and fills the rest.
 // - The step tables live in shared memory, loaded once per CTA: per target
 //   point 2 B (flat index | used-dims mask << 13; the blend weight is
-//   1 / popcount(mask)), a step's points sorted by their mask so that a
-//   warp's threads take the same dims; per level and operator row one
-//   32-bit word (tap count, columns and pattern), and per level and pattern
-//   (distinct row, at most 4) one float4 of coefficients, so a warp's
-//   coefficient loads touch few distinct words.
+//   1 / popcount(mask)); per level and operator row one 32-bit word (tap
+//   count, columns and pattern); per level and pattern (distinct row, at
+//   most 4) one float4 of coefficients, so that a warp's coefficient loads
+//   touch few distinct words.
+// - Bank conflicts: a step's targets share the parity of their flat index,
+//   so in a plain row-major tile a warp's loads meet in 16 or 8 of the 32
+//   banks. The tile skews point i to word i + i / 32 (Tile), and pack_steps
+//   orders a step's points by used-dims mask (a warp's threads then take
+//   the same dims) and deals them into warps that take one point per
+//   skewed bank before a second.
 // - Persistent CTAs: the host launches as many CTAs as are resident at once
 //   and each walks a contiguous run of blocks, so the tables are loaded once
 //   per CTA and the decoder finds each block's outliers with a cursor that
@@ -50,6 +55,7 @@ namespace {
 
 constexpr int kB = 17;
 constexpr int kThreads = 256;
+constexpr int kMinCtas = 6;  // CTAs per SM the 3-D tile and tables leave room for: registers are capped to match
 constexpr float kRadius = 127.0f;
 constexpr int kCenter = 128;
 constexpr int kPatterns = 4;  // distinct rows of one level's operator
@@ -80,7 +86,8 @@ struct Shape {
   static constexpr int GV = G * V;                          // tile points per CTA
   // the table image, int32 words in this order (ops.py packs the same):
   // coef [L][kPatterns][4] f32, meta [L][kB], step_off [MAXS + 1],
-  // step_op [MAXS], pts [NP rounded up to even] u16
+  // step_op [MAXS], pts [NP rounded up to even] u16; then the tile and the
+  // codes
   static constexpr int kCoefWords = L * kPatterns * 4;
   static constexpr int kMetaWords = L * kB;
   static constexpr int kPtsWords = (NP + 1) / 2;
@@ -220,7 +227,7 @@ __device__ __forceinline__ void group_range(long long ng, long long* begin, long
 }
 
 template <int NDIM, int EVERY>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kMinCtas)
 interp_encode_kernel(const float* __restrict__ blocks, uint8_t* __restrict__ codes, float* __restrict__ recon,
                      long long nb, float twoeb, float inv2eb, const int* __restrict__ image, int n_steps) {
   using S = Shape<NDIM, EVERY>;
@@ -284,7 +291,7 @@ __device__ __forceinline__ int anchor_index(int slot) {
 }
 
 template <int NDIM, int EVERY>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kMinCtas)
 interp_decode_kernel(const uint8_t* __restrict__ codes, const float* __restrict__ anchors,
                      const long long* __restrict__ okeys, const float* __restrict__ ovals, long long n_out,
                      float* __restrict__ recon, long long nb, float twoeb, const int* __restrict__ image,
