@@ -93,7 +93,7 @@ struct Shape {
   static constexpr int kPtsWords = (NP + 1) / 2;
   static constexpr int kTableWords = kCoefWords + kMetaWords + (MAXS + 1) + MAXS + kPtsWords;
   static constexpr int kTableBytes = round_up(kTableWords * 4, 16);
-  static constexpr int kTileBytes = round_up((GV + GV / 32 + 1) * 4, 16);  // swizzled: see Tile
+  static constexpr int kTileBytes = round_up(GV * 4, 16);
   static constexpr int kCodeBytes = round_up(GV, 16);
 };
 
@@ -114,14 +114,6 @@ struct Tables {
         pts(reinterpret_cast<const uint16_t*>(step_op + S::MAXS)) {}
 };
 
-// The CTA's f32 tile. Point i lives at word i + i / 32: a step's targets
-// share the parity of their flat index (17 is odd), so unswizzled they meet
-// in half or a quarter of the 32 banks; the skew spreads them over all.
-struct Tile {
-  float* w;
-  __device__ __forceinline__ float& operator[](int i) const { return w[i + (i >> 5)]; }
-};
-
 // Copies the table image into shared memory (every thread takes a share).
 template <int NDIM, int EVERY>
 __device__ __forceinline__ void load_tables(unsigned char* smem, const int* __restrict__ image) {
@@ -132,7 +124,7 @@ __device__ __forceinline__ void load_tables(unsigned char* smem, const int* __re
 // pred = sum over used dims d (ascending) of w * (sum over taps of coef * tile[tap]),
 // w = 1 / (number of used dims), each product and sum rounded to fp32 on its own.
 template <int NDIM>
-__device__ __forceinline__ float predict(const Tile& tile, int first, int idx, int dmask, const float4* coef,
+__device__ __forceinline__ float predict(const float* tile, int idx, int dmask, const float4* coef,
                                          const int* meta) {
   int c[NDIM];
   int rem = idx;
@@ -152,26 +144,25 @@ __device__ __forceinline__ float predict(const Tile& tile, int first, int idx, i
       const int m = meta[c[d]];
       const float4 k = coef[(m >> 23) & (kPatterns - 1)];
       const int n = m & 7;
-      const int row = first + idx - c[d] * sd;
+      const float* row = tile + (idx - c[d] * sd);
       float acc = 0.0f;
-      if (n > 0) acc = __fadd_rn(acc, __fmul_rn(k.x, tile[row + ((m >> 3) & 31) * sd]));
-      if (n > 1) acc = __fadd_rn(acc, __fmul_rn(k.y, tile[row + ((m >> 8) & 31) * sd]));
-      if (n > 2) acc = __fadd_rn(acc, __fmul_rn(k.z, tile[row + ((m >> 13) & 31) * sd]));
-      if (n > 3) acc = __fadd_rn(acc, __fmul_rn(k.w, tile[row + ((m >> 18) & 31) * sd]));
+      if (n > 0) acc = __fadd_rn(acc, __fmul_rn(k.x, row[((m >> 3) & 31) * sd]));
+      if (n > 1) acc = __fadd_rn(acc, __fmul_rn(k.y, row[((m >> 8) & 31) * sd]));
+      if (n > 2) acc = __fadd_rn(acc, __fmul_rn(k.z, row[((m >> 13) & 31) * sd]));
+      if (n > 3) acc = __fadd_rn(acc, __fmul_rn(k.w, row[((m >> 18) & 31) * sd]));
       pred = __fadd_rn(pred, __fmul_rn(w, acc));
     }
   }
   return pred;
 }
 
-// One step over one block's points (tile points first.., code + first..),
-// strided over `lanes` threads.
+// One step over one block's tile, points strided over `lanes` threads.
 // Encode: quantize against the original value in the tile and write the
 // reconstruction over it. Decode: replay the code; a code-0 point keeps the
 // outlier value (or 0) placed before the first step.
 template <int NDIM, int EVERY, bool ENCODE>
-__device__ __forceinline__ void run_step(const Tables<NDIM, EVERY>& tb, int k, int lane, int lanes, const Tile& tile,
-                                         int first, uint8_t* code, float twoeb, float inv2eb) {
+__device__ __forceinline__ void run_step(const Tables<NDIM, EVERY>& tb, int k, int lane, int lanes, float* tile,
+                                         uint8_t* code, float twoeb, float inv2eb) {
   const int op = tb.step_op[k];
   const float4* coef = tb.coef + op * kPatterns;
   const int* meta = tb.meta + op * kB;
@@ -180,19 +171,18 @@ __device__ __forceinline__ void run_step(const Tables<NDIM, EVERY>& tb, int k, i
     const int pt = tb.pts[p];
     const int idx = pt & 0x1FFF;
     if constexpr (ENCODE) {
-      const float pred = predict<NDIM>(tile, first, idx, pt >> 13, coef, meta);
-      float& t = tile[first + idx];
-      const float o = t;
+      const float pred = predict<NDIM>(tile, idx, pt >> 13, coef, meta);
+      const float o = tile[idx];
       // quantize_pred: q = rint((orig - pred) * inv2eb); outlier iff |q| > 127
       const float q = rintf(__fmul_rn(__fsub_rn(o, pred), inv2eb));
       const bool out = fabsf(q) > kRadius;
-      t = out ? o : __fadd_rn(pred, __fmul_rn(q, twoeb));
-      code[first + idx] = out ? 0 : (uint8_t)((int)q + kCenter);
+      tile[idx] = out ? o : __fadd_rn(pred, __fmul_rn(q, twoeb));
+      code[idx] = out ? 0 : (uint8_t)((int)q + kCenter);
     } else {
-      const int c = code[first + idx];
+      const int c = code[idx];
       if (c != 0) {
-        const float pred = predict<NDIM>(tile, first, idx, pt >> 13, coef, meta);
-        tile[first + idx] = __fadd_rn(pred, __fmul_rn((float)(c - kCenter), twoeb));
+        const float pred = predict<NDIM>(tile, idx, pt >> 13, coef, meta);
+        tile[idx] = __fadd_rn(pred, __fmul_rn((float)(c - kCenter), twoeb));
       }
     }
   }
@@ -201,20 +191,20 @@ __device__ __forceinline__ void run_step(const Tables<NDIM, EVERY>& tb, int k, i
 // All steps over the CTA's tile; returns after a CTA barrier, so the tile
 // is complete for every thread.
 template <int NDIM, int EVERY, bool ENCODE>
-__device__ __forceinline__ void run_steps(const Tables<NDIM, EVERY>& tb, int n_steps, const Tile& tile, uint8_t* code,
+__device__ __forceinline__ void run_steps(const Tables<NDIM, EVERY>& tb, int n_steps, float* tile, uint8_t* code,
                                           float twoeb, float inv2eb) {
   using S = Shape<NDIM, EVERY>;
   if constexpr (S::TPB <= 32) {
-    // a block's threads share a warp: block `slot` owns tile points slot * V..
+    // a block's threads share a warp: each block owns V points of the tile
     const int slot = threadIdx.x / S::TPB, lane = threadIdx.x % S::TPB;
     for (int k = 0; k < n_steps; ++k) {
-      run_step<NDIM, EVERY, ENCODE>(tb, k, lane, S::TPB, tile, slot * S::V, code, twoeb, inv2eb);
+      run_step<NDIM, EVERY, ENCODE>(tb, k, lane, S::TPB, tile + slot * S::V, code + slot * S::V, twoeb, inv2eb);
       __syncwarp();
     }
     __syncthreads();
   } else {
     for (int k = 0; k < n_steps; ++k) {
-      run_step<NDIM, EVERY, ENCODE>(tb, k, threadIdx.x, kThreads, tile, 0, code, twoeb, inv2eb);
+      run_step<NDIM, EVERY, ENCODE>(tb, k, threadIdx.x, kThreads, tile, code, twoeb, inv2eb);
       __syncthreads();
     }
   }
@@ -234,7 +224,7 @@ interp_encode_kernel(const float* __restrict__ blocks, uint8_t* __restrict__ cod
   extern __shared__ __align__(16) unsigned char smem[];
   load_tables<NDIM, EVERY>(smem, image);
   const Tables<NDIM, EVERY> tb(smem);
-  const Tile tile{reinterpret_cast<float*>(smem + S::kTableBytes)};
+  float* tile = reinterpret_cast<float*>(smem + S::kTableBytes);
   uint8_t* code = smem + S::kTableBytes + S::kTileBytes;
   // anchors keep the center code; every other point gets its code from its step
   for (int i = threadIdx.x; i < S::GV; i += kThreads) code[i] = kCenter;
@@ -301,7 +291,7 @@ interp_decode_kernel(const uint8_t* __restrict__ codes, const float* __restrict_
   __shared__ long long cursor0;
   load_tables<NDIM, EVERY>(smem, image);
   const Tables<NDIM, EVERY> tb(smem);
-  const Tile tile{reinterpret_cast<float*>(smem + S::kTableBytes)};
+  float* tile = reinterpret_cast<float*>(smem + S::kTableBytes);
   uint8_t* code = smem + S::kTableBytes + S::kTileBytes;
   long long g0, g1;
   group_range((nb + S::G - 1) / S::G, &g0, &g1);

@@ -47,27 +47,6 @@ def _pack_rows(M: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
             | patterns.index(key) << 23
     return meta, coef
 
-def _warp_order(idx: np.ndarray, dmask: np.ndarray) -> np.ndarray:
-    """Order of one step's points for the kernels' warps: by used-dims mask,
-    so that a warp's threads take the same dims, and within a mask dealt
-    into runs of 32 that each take one point per shared-memory bank of the
-    kernels' swizzled tile (word i + i // 32) before a second, so that a
-    warp's tile loads meet few bank conflicts."""
-    order = []
-    for m in np.unique(dmask):
-        members = np.flatnonzero(dmask == m)
-        bank = (idx[members] + (idx[members] >> 5)) % 32
-        buckets = [list(members[bank == b]) for b in range(32)]
-        while any(buckets):
-            run = []
-            while len(run) < 32 and any(buckets):
-                for b in sorted(range(32), key=lambda b: -len(buckets[b])):
-                    if buckets[b] and len(run) < 32:
-                        run.append(buckets[b].pop())
-            order += run
-    return np.asarray(order, np.int64)
-
-
 def _levels(every: int) -> tuple[int, ...]:
     return tuple(every >> i for i in range(1, every.bit_length()))
 
@@ -83,7 +62,7 @@ def pack_steps(steps: tuple[Step, ...], anchor_every: int) -> dict:
     kernels keep in shared memory.
 
     ``pts`` (u16): per target point, step after step (``step_off``
-    delimits them), within a step in ``_warp_order``, its flat index | used-dims
+    delimits them) and within a step by used dims, its flat index | used-dims
     mask << 13; its blend weight is 1 / (number of used dims). ``step_op``:
     per step, its level's index; ``meta`` (i32): per level and operator row,
     the banded row's tap count | column t << (3 + 5 t) | pattern << 23, and
@@ -148,7 +127,7 @@ def pack_steps(steps: tuple[Step, ...], anchor_every: int) -> dict:
                 if not done[base[has] + cols[c[has], t] * sd[d]].all():
                     raise ValueError("a tap reads a point that no earlier step reconstructs")
         done[idx] = True
-        order = _warp_order(idx, dmask)
+        order = np.argsort(dmask, kind="stable")  # a warp's points share their used dims
         pts.append(idx[order] | (dmask[order] << 13))
         off.append(off[-1] + idx.size)
         step_op.append(op)
