@@ -29,12 +29,8 @@
 //   count, columns and pattern); per level and pattern (distinct row, at
 //   most 4) one float4 of coefficients, so that a warp's coefficient loads
 //   touch few distinct words.
-// - Bank conflicts: a step's targets share the parity of their flat index,
-//   so in a plain row-major tile a warp's loads meet in 16 or 8 of the 32
-//   banks. The tile skews point i to word i + i / 32 (Tile), and pack_steps
-//   orders a step's points by used-dims mask (a warp's threads then take
-//   the same dims) and deals them into warps that take one point per
-//   skewed bank before a second.
+// - A step's points are ordered by used-dims mask (pack_steps), so that a
+//   warp's threads take the same dims and do not diverge.
 // - Persistent CTAs: the host launches as many CTAs as are resident at once
 //   and each walks a contiguous run of blocks, so the tables are loaded once
 //   per CTA and the decoder finds each block's outliers with a cursor that
@@ -55,7 +51,7 @@ namespace {
 
 constexpr int kB = 17;
 constexpr int kThreads = 256;
-constexpr int kMinCtas = 6;  // CTAs per SM the 3-D tile and tables leave room for: registers are capped to match
+constexpr int kMinCtas = 6;  // CTAs per SM that a 3-D tile and the tables leave room for; registers capped to match
 constexpr float kRadius = 127.0f;
 constexpr int kCenter = 128;
 constexpr int kPatterns = 4;  // distinct rows of one level's operator
