@@ -11,9 +11,10 @@
 // recon when asked; decode reads the u8 codes, the block's few anchors and
 // its outliers and writes the f32 recon); the arithmetic is at most 12
 // multiply-adds per point, far below the card's fp32 rate. In practice the
-// limit is on chip: every tap is a shared-memory load, and the per-point
-// index math and table reads come with it. So the design keeps all of that
-// in shared memory and spends it carefully:
+// limit is instruction issue on the SM: every tap is a shared-memory load
+// with its address math, and each point reads the step tables. So the
+// design keeps all of that in shared memory and cuts the instructions per
+// point:
 //
 // - The shape is a compile-time constant: both kernels are templates on the
 //   block rank (1-3) and the anchor stride (16, 8, 4), so every division of
@@ -51,7 +52,6 @@ namespace {
 
 constexpr int kB = 17;
 constexpr int kThreads = 256;
-constexpr int kMinCtas = 6;  // CTAs per SM that a 3-D tile and the tables leave room for; registers capped to match
 constexpr float kRadius = 127.0f;
 constexpr int kCenter = 128;
 constexpr int kPatterns = 4;  // distinct rows of one level's operator
@@ -213,7 +213,7 @@ __device__ __forceinline__ void group_range(long long ng, long long* begin, long
 }
 
 template <int NDIM, int EVERY>
-__global__ void __launch_bounds__(kThreads, kMinCtas)
+__global__ void __launch_bounds__(kThreads)
 interp_encode_kernel(const float* __restrict__ blocks, uint8_t* __restrict__ codes, float* __restrict__ recon,
                      long long nb, float twoeb, float inv2eb, const int* __restrict__ image, int n_steps) {
   using S = Shape<NDIM, EVERY>;
@@ -277,7 +277,7 @@ __device__ __forceinline__ int anchor_index(int slot) {
 }
 
 template <int NDIM, int EVERY>
-__global__ void __launch_bounds__(kThreads, kMinCtas)
+__global__ void __launch_bounds__(kThreads)
 interp_decode_kernel(const uint8_t* __restrict__ codes, const float* __restrict__ anchors,
                      const long long* __restrict__ okeys, const float* __restrict__ ovals, long long n_out,
                      float* __restrict__ recon, long long nb, float twoeb, const int* __restrict__ image,

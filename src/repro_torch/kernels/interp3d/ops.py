@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ...core import predictor as _plain
+from ...core.autotune import levels_for_stride
 from ...core.stencils import Step
 from ..build import library
 
@@ -30,13 +31,14 @@ MAX_PATTERNS = 4  # distinct rows (tap offsets and coefficients) of one level's 
 
 def _pack_rows(M: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     """One operator's rows: per row c the word tap count | column t << (3 + 5 t)
-    | pattern << 23, and per pattern (the distinct (offsets, coefficients)
-    rows) its coefficients."""
+    | pattern << 23, and per pattern (a distinct row: tap offsets from c and
+    coefficients) its coefficients. Rows without taps (never a target's)
+    take pattern 0."""
     n, cols, cf = _plain.banded_rows(M)
     meta = np.zeros(M.shape[0], np.int32)
     coef = np.zeros((MAX_PATTERNS, _plain.MAX_TAPS), np.float32)
     patterns: list[tuple] = []
-    for c in range(M.shape[0]):
+    for c in np.flatnonzero(n):
         key = (tuple(cols[c, : n[c]] - c), tuple(cf[c, : n[c]].tolist()))
         if key not in patterns:
             if len(patterns) == MAX_PATTERNS:
@@ -46,9 +48,6 @@ def _pack_rows(M: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
         meta[c] = int(n[c]) | sum(int(cols[c, t]) << (3 + 5 * t) for t in range(_plain.MAX_TAPS)) \
             | patterns.index(key) << 23
     return meta, coef
-
-def _levels(every: int) -> tuple[int, ...]:
-    return tuple(every >> i for i in range(1, every.bit_length()))
 
 
 def _coords(ndim: int) -> np.ndarray:
@@ -71,8 +70,8 @@ def pack_steps(steps: tuple[Step, ...], anchor_every: int) -> dict:
     as the int32 words the kernels copy into shared memory.
 
     Raises ValueError when the steps do not have the shape the kernels
-    assume: 17^ndim blocks, ndim 1..3, an anchor stride of 16, 8 or 4 with
-    its levels in order, one operator per level, one blend weight
+    assume: 17^ndim blocks, ndim 1..3, an anchor stride of 16, 8 or 4 and
+    its levels, one operator per level, one blend weight
     1 / (used dims) per point, every non-anchor point the target of exactly
     one step, and every tap on an anchor or a target of an earlier step
     (the kernels update one tile in place).
@@ -84,7 +83,7 @@ def pack_steps(steps: tuple[Step, ...], anchor_every: int) -> dict:
     every = int(anchor_every)
     if every not in ANCHOR_STRIDES:
         raise ValueError(f"interp kernels take anchor strides {ANCHOR_STRIDES}, got {anchor_every}")
-    levels = _levels(every)
+    levels = levels_for_stride(every)
     if len(steps) > ndim * len(levels):
         raise ValueError(f"{len(steps)} steps; the kernels take at most {ndim * len(levels)}")
     coords = _coords(ndim)
@@ -98,8 +97,6 @@ def pack_steps(steps: tuple[Step, ...], anchor_every: int) -> dict:
         if st.level not in levels:
             raise ValueError(f"step at level {st.level}; anchor stride {every} has levels {levels}")
         op = levels.index(st.level)
-        if step_op and op < step_op[-1]:
-            raise ValueError("interp kernels need the levels coarse to fine")
         M0 = st.matrices[0]
         if any(not np.array_equal(M, M0) for M in st.matrices) or (ops[op] is not None and
                                                                      not np.array_equal(ops[op], M0)):
