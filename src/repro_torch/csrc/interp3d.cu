@@ -142,10 +142,14 @@ __device__ __forceinline__ float predict(const float* tile, int idx, int dmask, 
       const int n = m & 7;
       const float* row = tile + (idx - c[d] * sd);
       float acc = 0.0f;
-      if (n > 0) acc = __fadd_rn(acc, __fmul_rn(k.x, row[((m >> 3) & 31) * sd]));
-      if (n > 1) acc = __fadd_rn(acc, __fmul_rn(k.y, row[((m >> 8) & 31) * sd]));
-      if (n > 2) acc = __fadd_rn(acc, __fmul_rn(k.z, row[((m >> 13) & 31) * sd]));
-      if (n > 3) acc = __fadd_rn(acc, __fmul_rn(k.w, row[((m >> 18) & 31) * sd]));
+      // a target's row has 2 (linear), 3 or 4 taps (pack_steps checks): the
+      // third and fourth sit behind a branch that a warp of linear rows skips
+      acc = __fadd_rn(acc, __fmul_rn(k.x, row[((m >> 3) & 31) * sd]));
+      acc = __fadd_rn(acc, __fmul_rn(k.y, row[((m >> 8) & 31) * sd]));
+      if (n > 2) {
+        acc = __fadd_rn(acc, __fmul_rn(k.z, row[((m >> 13) & 31) * sd]));
+        if (n > 3) acc = __fadd_rn(acc, __fmul_rn(k.w, row[((m >> 18) & 31) * sd]));
+      }
       pred = __fadd_rn(pred, __fmul_rn(w, acc));
     }
   }

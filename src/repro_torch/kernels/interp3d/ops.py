@@ -71,8 +71,8 @@ def pack_steps(steps: tuple[Step, ...], anchor_every: int) -> dict:
 
     Raises ValueError when the steps do not have the shape the kernels
     assume: 17^ndim blocks, ndim 1..3, an anchor stride of 16, 8 or 4 and
-    its levels, one operator per level, one blend weight
-    1 / (used dims) per point, every non-anchor point the target of exactly
+    its levels, one operator per level, two to four taps in a target's
+    row, one blend weight 1 / (used dims) per point, every non-anchor point the target of exactly
     one step, and every tap on an anchor or a target of an earlier step
     (the kernels update one tile in place).
     """
@@ -118,6 +118,8 @@ def pack_steps(steps: tuple[Step, ...], anchor_every: int) -> dict:
             if np.any(wv[on] != (np.float32(1) / used[on].astype(np.float32))):
                 raise ValueError("interp kernels need the blend weight 1 / (used dims) per point")
             c = coords[d, idx[on]]
+            if np.any(n[c] < 2):
+                raise ValueError("interp kernels need two to four taps in a target's row")
             base = idx[on] - c * sd[d]
             for t in range(_plain.MAX_TAPS):
                 has = n[c] > t
