@@ -1,10 +1,12 @@
 """Time the interp kernels at the main path's shapes on one NVIDIA card.
 
-    python src/repro_torch/kernels/interp3d/bench.py [--src DIR] [--side 512] [--seed 0] [--out FILE]
+    python src/repro_torch/kernels/interp3d/bench.py [--src DIR] [--side 512] [--seed 0]
+        [--splines S,S,S,S --schemes M,M,M,M] [--out FILE]
 
 Makes the Nyx-like lognormal field of ``chip_smoke.py`` on the card from
 ``--seed``, compresses it once with the default spec for its plan (splines,
-schemes, anchor stride, bound), gathers its 17^3 blocks, and times
+schemes, anchor stride, bound; ``--splines`` and ``--schemes`` replace the
+plan's, one per level), gathers its 17^3 blocks, and times
 ``compress_blocks`` (codes only, as the main path calls it) and
 ``decompress_blocks`` with CUDA events. Both are checked first: the codes
 against the plain predictor, the decode against the encoder's recon, bit
@@ -62,6 +64,8 @@ def main() -> int:
     ap.add_argument("--side", type=int, default=512)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--splines", default=None, help="comma-separated, one per level, in place of the plan's")
+    ap.add_argument("--schemes", default=None, help="comma-separated, one per level, in place of the plan's")
     ap.add_argument("--out", default=None, help="append the JSON line to this file")
     args = ap.parse_args()
     sys.path.insert(0, str(pathlib.Path(args.src).resolve()))
@@ -84,6 +88,10 @@ def main() -> int:
     x = nyx_like(args.side, args.seed, device)
     header = Compressor.inspect(Compressor().compress(x))
     twoeb, stride = 2.0 * header["eb_abs"], int(header["anchor_stride"])
+    if args.splines:
+        header["splines"] = args.splines.split(",")
+    if args.schemes:
+        header["schemes"] = args.schemes.split(",")
     steps = build_steps(3, 17, levels_for_stride(stride), tuple(header["splines"]), tuple(header["schemes"]))
     blocks = gather_blocks_batch_t(pad_field_batch_t(x[None]))
     del x
