@@ -36,10 +36,9 @@
 //   and each walks a contiguous run of blocks, so the tables are loaded once
 //   per CTA and the decoder finds each block's outliers with a cursor that
 //   only moves forward (one binary search per CTA).
-// - Two 3-D blocks share a CTA (256 threads), each thread taking the same
-//   point of both, so that they share the index math and table reads, with
-//   a barrier after each step. 2-D and 1-D blocks take a warp and 8 lanes,
-//   so 8 or 32 blocks share a CTA and every step is warp-synchronous.
+// - A 3-D block takes the whole CTA (256 threads), with a barrier after
+//   each step. 2-D and 1-D blocks take a warp and 8 lanes, so 8 or 32
+//   blocks share a CTA and every step is warp-synchronous.
 //
 // Encode and decode run the same predict() with the same operation order
 // and round every product and sum on its own (__fmul_rn / __fadd_rn: no FMA
@@ -79,8 +78,7 @@ struct Shape {
   static constexpr int L = ilog2(EVERY);                    // levels (operators)
   static constexpr int MAXS = NDIM * L;                     // steps at most
   static constexpr int TPB = NDIM == 3 ? 256 : (NDIM == 2 ? 32 : 8);  // threads per block
-  static constexpr int BPT = NDIM == 3 ? 2 : 1;             // blocks per thread, side by side
-  static constexpr int G = kThreads / TPB * BPT;            // blocks per CTA
+  static constexpr int G = kThreads / TPB;                  // blocks per CTA
   static constexpr int GV = G * V;                          // tile points per CTA
   // the table image, int32 words in this order (ops.py packs the same):
   // coef [L][kPatterns][4] f32, meta [L][kB], step_off [MAXS + 1],
@@ -120,12 +118,10 @@ __device__ __forceinline__ void load_tables(unsigned char* smem, const int* __re
 }
 
 // pred = sum over used dims d (ascending) of w * (sum over taps of coef * tile[tap]),
-// w = 1 / (number of used dims), each product and sum rounded to fp32 on its own;
-// for the same point of BPT blocks side by side (block b at tile + b * V), which
-// share the index math and table reads.
-template <int NDIM, int BPT, int V>
-__device__ __forceinline__ void predict(const float* tile, int idx, int dmask, const float4* coef, const int* meta,
-                                        float (&pred)[BPT]) {
+// w = 1 / (number of used dims), each product and sum rounded to fp32 on its own.
+template <int NDIM>
+__device__ __forceinline__ float predict(const float* tile, int idx, int dmask, const float4* coef,
+                                         const int* meta) {
   int c[NDIM];
   int rem = idx;
 #pragma unroll
@@ -136,8 +132,7 @@ __device__ __forceinline__ void predict(const float* tile, int idx, int dmask, c
   }
   const int used = __popc(dmask);
   const float w = used == 1 ? 1.0f : (used == 2 ? 0.5f : 0x1.555556p-2f);  // fp32(1/3), as the tables hold
-#pragma unroll
-  for (int b = 0; b < BPT; ++b) pred[b] = 0.0f;
+  float pred = 0.0f;
 #pragma unroll
   for (int d = 0; d < NDIM; ++d) {
     if (dmask & (1 << d)) {
@@ -145,41 +140,29 @@ __device__ __forceinline__ void predict(const float* tile, int idx, int dmask, c
       const int m = meta[c[d]];
       const float4 k = coef[(m >> 23) & (kPatterns - 1)];
       const int n = m & 7;
-      const int row = idx - c[d] * sd;
-      float acc[BPT];
+      const float* row = tile + (idx - c[d] * sd);
+      float acc = 0.0f;
       // a target's row has 2 (linear), 3 or 4 taps (pack_steps checks): the
       // third and fourth sit behind a branch that a warp of linear rows skips
-      const int t0 = row + ((m >> 3) & 31) * sd, t1 = row + ((m >> 8) & 31) * sd;
-#pragma unroll
-      for (int b = 0; b < BPT; ++b) {
-        acc[b] = __fadd_rn(0.0f, __fmul_rn(k.x, tile[b * V + t0]));
-        acc[b] = __fadd_rn(acc[b], __fmul_rn(k.y, tile[b * V + t1]));
-      }
+      acc = __fadd_rn(acc, __fmul_rn(k.x, row[((m >> 3) & 31) * sd]));
+      acc = __fadd_rn(acc, __fmul_rn(k.y, row[((m >> 8) & 31) * sd]));
       if (n > 2) {
-        const int t2 = row + ((m >> 13) & 31) * sd;
-#pragma unroll
-        for (int b = 0; b < BPT; ++b) acc[b] = __fadd_rn(acc[b], __fmul_rn(k.z, tile[b * V + t2]));
-        if (n > 3) {
-          const int t3 = row + ((m >> 18) & 31) * sd;
-#pragma unroll
-          for (int b = 0; b < BPT; ++b) acc[b] = __fadd_rn(acc[b], __fmul_rn(k.w, tile[b * V + t3]));
-        }
+        acc = __fadd_rn(acc, __fmul_rn(k.z, row[((m >> 13) & 31) * sd]));
+        if (n > 3) acc = __fadd_rn(acc, __fmul_rn(k.w, row[((m >> 18) & 31) * sd]));
       }
-#pragma unroll
-      for (int b = 0; b < BPT; ++b) pred[b] = __fadd_rn(pred[b], __fmul_rn(w, acc[b]));
+      pred = __fadd_rn(pred, __fmul_rn(w, acc));
     }
   }
+  return pred;
 }
 
-// One step over BPT blocks' tiles (block b at tile + b * V), points strided
-// over `lanes` threads. Encode: quantize against the original value in the
-// tile and write the reconstruction over it. Decode: replay the code; a
-// code-0 point keeps the outlier value (or 0) placed before the first step.
+// One step over one block's tile, points strided over `lanes` threads.
+// Encode: quantize against the original value in the tile and write the
+// reconstruction over it. Decode: replay the code; a code-0 point keeps the
+// outlier value (or 0) placed before the first step.
 template <int NDIM, int EVERY, bool ENCODE>
 __device__ __forceinline__ void run_step(const Tables<NDIM, EVERY>& tb, int k, int lane, int lanes, float* tile,
                                          uint8_t* code, float twoeb, float inv2eb) {
-  using S = Shape<NDIM, EVERY>;
-  constexpr int BPT = S::BPT, V = S::V;
   const int op = tb.step_op[k];
   const float4* coef = tb.coef + op * kPatterns;
   const int* meta = tb.meta + op * kB;
@@ -187,31 +170,19 @@ __device__ __forceinline__ void run_step(const Tables<NDIM, EVERY>& tb, int k, i
   for (int p = tb.step_off[k] + lane; p < end; p += lanes) {
     const int pt = tb.pts[p];
     const int idx = pt & 0x1FFF;
-    float pred[BPT];
     if constexpr (ENCODE) {
-      predict<NDIM, BPT, V>(tile, idx, pt >> 13, coef, meta, pred);
-#pragma unroll
-      for (int b = 0; b < BPT; ++b) {
-        const float o = tile[b * V + idx];
-        // quantize_pred: q = rint((orig - pred) * inv2eb); outlier iff |q| > 127
-        const float q = rintf(__fmul_rn(__fsub_rn(o, pred[b]), inv2eb));
-        const bool out = fabsf(q) > kRadius;
-        tile[b * V + idx] = out ? o : __fadd_rn(pred[b], __fmul_rn(q, twoeb));
-        code[b * V + idx] = out ? 0 : (uint8_t)((int)q + kCenter);
-      }
+      const float pred = predict<NDIM>(tile, idx, pt >> 13, coef, meta);
+      const float o = tile[idx];
+      // quantize_pred: q = rint((orig - pred) * inv2eb); outlier iff |q| > 127
+      const float q = rintf(__fmul_rn(__fsub_rn(o, pred), inv2eb));
+      const bool out = fabsf(q) > kRadius;
+      tile[idx] = out ? o : __fadd_rn(pred, __fmul_rn(q, twoeb));
+      code[idx] = out ? 0 : (uint8_t)((int)q + kCenter);
     } else {
-      int c[BPT];
-      bool any = false;
-#pragma unroll
-      for (int b = 0; b < BPT; ++b) {
-        c[b] = code[b * V + idx];
-        any = any || c[b] != 0;
-      }
-      if (any) {
-        predict<NDIM, BPT, V>(tile, idx, pt >> 13, coef, meta, pred);
-#pragma unroll
-        for (int b = 0; b < BPT; ++b)
-          if (c[b] != 0) tile[b * V + idx] = __fadd_rn(pred[b], __fmul_rn((float)(c[b] - kCenter), twoeb));
+      const int c = code[idx];
+      if (c != 0) {
+        const float pred = predict<NDIM>(tile, idx, pt >> 13, coef, meta);
+        tile[idx] = __fadd_rn(pred, __fmul_rn((float)(c - kCenter), twoeb));
       }
     }
   }
@@ -224,7 +195,7 @@ __device__ __forceinline__ void run_steps(const Tables<NDIM, EVERY>& tb, int n_s
                                           float twoeb, float inv2eb) {
   using S = Shape<NDIM, EVERY>;
   if constexpr (S::TPB <= 32) {
-    // a block's threads share a warp: each block owns V points of the tile (BPT is 1)
+    // a block's threads share a warp: each block owns V points of the tile
     const int slot = threadIdx.x / S::TPB, lane = threadIdx.x % S::TPB;
     for (int k = 0; k < n_steps; ++k) {
       run_step<NDIM, EVERY, ENCODE>(tb, k, lane, S::TPB, tile + slot * S::V, code + slot * S::V, twoeb, inv2eb);
