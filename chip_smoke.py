@@ -78,6 +78,26 @@ def say(*parts) -> None:
     print(*parts, flush=True)
 
 
+def nyx_like(side: int, seed: int, device):
+    """Lognormal spectral field, the 'nyx' recipe of the synthetic datasets:
+    white noise filtered by |k|^-2, normalized to [-1, 1], then exp(2 f)."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    white = torch.randn((side,) * 3, generator=g, device=device, dtype=torch.float32)
+    spec = torch.fft.rfftn(white)
+    del white
+    k = torch.fft.fftfreq(side, device=device)
+    kz = torch.fft.rfftfreq(side, device=device)
+    k2 = k[:, None, None] ** 2 + k[None, :, None] ** 2 + kz[None, None, :] ** 2
+    filt = (k2 + 1e-6) ** (-2.0 / 2.0)
+    filt[0, 0, 0] = 0.0
+    out = torch.fft.irfftn(spec * filt, s=(side,) * 3)
+    del spec, filt, k2
+    out /= out.abs().max().clamp(min=1e-12)
+    return torch.exp(2.0 * out).contiguous()
+
+
 def smooth_big(side: int = 96):
     """The 96^3 smooth test field (sin/cos plus a Gaussian bump), numpy."""
     import numpy as np
@@ -85,6 +105,21 @@ def smooth_big(side: int = 96):
     gr = np.linspace(0, 4 * np.pi, side)
     X, Y, Z = np.meshgrid(gr, gr, gr, indexing="ij")
     return (np.sin(X) * np.cos(Y) * np.sin(Z) + 0.3 * np.exp(-((X - 6) ** 2 + (Y - 6) ** 2) / 8)).astype(np.float32)
+
+
+def cuda_ms(fn, iters: int) -> float:
+    """Mean device time of ``fn`` over ``iters`` runs after one warm-up (CUDA events)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 INTERP_SPLINES = ("linear", "cubic", "natural-cubic")
@@ -272,6 +307,48 @@ def interp_ops(tables: dict) -> tuple[int, int]:
     return ops, int(pts.size)
 
 
+def interp_main_shapes(x, header: dict, iters: int) -> dict:
+    """The interp kernels at the main path's shapes: the 17^3 blocks of the
+    field ``x`` under the plan in ``header`` (a container's: splines,
+    schemes, anchor stride, eb_abs). Runs the encode as the main path calls
+    it (codes only) and with its recon, and the decode on what a container
+    gives it; checks the codes, recon and decode against the plain
+    predictor and the decode against the encoder's recon, all bit for bit;
+    then times both kernels with CUDA events over ``iters`` launches.
+    Returns the inputs (blocks, steps, twoeb, stride, codes, decode_inputs),
+    the largest kernel-vs-plain differences and the two times in ms."""
+    import torch
+
+    from repro_torch.core import predictor as plain
+    from repro_torch.core.autotune import levels_for_stride
+    from repro_torch.core.blocks import gather_blocks_batch_t, pad_field_batch_t
+    from repro_torch.core.stencils import build_steps
+    from repro_torch.kernels import interp3d as interp
+
+    twoeb, stride = 2.0 * header["eb_abs"], int(header["anchor_stride"])
+    steps = build_steps(3, 17, levels_for_stride(stride), tuple(header["splines"]), tuple(header["schemes"]))
+    blocks = gather_blocks_batch_t(pad_field_batch_t(x[None]))
+    ck, _ = interp.compress_blocks(blocks, twoeb, steps, stride, with_recon=False)  # the main path's call
+    ckr, rk = interp.compress_blocks(blocks, twoeb, steps, stride)
+    cp, rp = plain.compress_blocks(blocks, twoeb, steps, stride)
+    enc_err = float((rk - rp).abs().max())
+    check(torch.equal(ck, ckr), "main-path shapes: encode without recon gives other codes")
+    check(torch.equal(ck, cp) and torch.equal(rk, rp), f"main-path shapes: encode != plain (recon by {enc_err})")
+    del cp, rp, ckr
+    dec_in = plain.decode_inputs(blocks, ck, stride)  # what the container gives the decoder
+    dk = interp.decompress_blocks(ck, *dec_in, twoeb, steps, stride)
+    dp = plain.decompress_blocks(ck, *dec_in, twoeb, steps, stride)
+    dec_err = float((dk - dp).abs().max())
+    check(torch.equal(dk, dp), f"main-path shapes: decode kernel vs plain differs by {dec_err}")
+    check(torch.equal(dk, rk), "main-path shapes: decode != encoder recon")
+    del dk, dp, rk
+    return {"blocks": blocks, "steps": steps, "twoeb": twoeb, "stride": stride, "codes": ck,
+            "decode_inputs": dec_in, "encode_err": enc_err, "decode_err": dec_err,
+            "encode_ms": cuda_ms(lambda: interp.compress_blocks(blocks, twoeb, steps, stride, with_recon=False),
+                                 iters),
+            "decode_ms": cuda_ms(lambda: interp.decompress_blocks(ck, *dec_in, twoeb, steps, stride), iters)}
+
+
 def phase_profile(comp, x, label: str) -> dict:
     """Profile one compress + decompress; returns the breakdown: per tracing
     span its host wall time and the device time of the kernels launched
@@ -380,7 +457,6 @@ def bits_lorenzo_times(x, bufs: dict, paths: dict, bound) -> list[dict]:
     from repro_torch.core.lossless import pipelines
     from repro_torch.kernels import bitshuffle as bits
     from repro_torch.kernels import lorenzo3d as lor
-    from repro_torch.kernels.interp3d.bench import cuda_ms
 
     header, sections = _sections_unpack(bufs["fzgpu_like"])
     seq = pipelines.decode(sections[0], device=x.device)  # bit1's input: bit1 is the fz pipeline's first stage
@@ -456,13 +532,9 @@ def main() -> int:
         return 2
     import repro_torch.core as core
     from repro_torch.core import Compressor, CompressorSpec
-    from repro_torch.kernels.interp3d.bench import cuda_ms, nyx_like
     from repro_torch.core import predictor as plain
-    from repro_torch.core.blocks import gather_blocks_batch_t, pad_field_batch_t
     from repro_torch.core.compressor import _sections_unpack
     from repro_torch.core.lossless import pipelines
-    from repro_torch.core.stencils import build_steps
-    from repro_torch.core.autotune import levels_for_stride
     from repro_torch.kernels import histogram as hist
     from repro_torch.kernels import interp3d as interp
     from repro_torch.kernels.build import build, build_dir
@@ -500,7 +572,6 @@ def main() -> int:
         comps[name] = comp
     results["main"] = results["paths"]["main"]
     header, sections = _sections_unpack(bufs["main"])
-    eb_abs = header["eb_abs"]
     say(f"main header: splines {header['splines']} schemes {header['schemes']} n_outliers {header['n_outliers']}")
 
     # 5. card path vs the port's CPU path
@@ -531,29 +602,12 @@ def main() -> int:
         results["card_vs_cpu"][name] = {"agree": agree, "bytes_equal": bc == bh, "err_over_eb": r96}
 
     # 6. kernel times at the paths' shapes
-    twoeb = 2.0 * eb_abs
-    stride = int(header["anchor_stride"])
-    steps = build_steps(3, 17, levels_for_stride(stride), tuple(header["splines"]), tuple(header["schemes"]))
-    blocks = gather_blocks_batch_t(pad_field_batch_t(x[None]))
+    im = interp_main_shapes(x, header, iters=10)
+    blocks, steps, twoeb, stride, ck = im["blocks"], im["steps"], im["twoeb"], im["stride"], im["codes"]
+    anchors, keys, vals = im["decode_inputs"]
     nb, V = int(blocks.shape[0]), 17 ** 3
-    ck, _ = interp.compress_blocks(blocks, twoeb, steps, stride, with_recon=False)  # the main path's call
-    ckr, rk = interp.compress_blocks(blocks, twoeb, steps, stride)
-    cp, rp = plain.compress_blocks(blocks, twoeb, steps, stride)
-    enc_err = float((rk - rp).abs().max())
-    check(torch.equal(ck, ckr), "main-path shapes: encode without recon gives other codes")
-    check(torch.equal(ck, cp) and torch.equal(rk, rp), f"main-path shapes: encode != plain (recon by {enc_err})")
-    del cp, rp
-    anchors, keys, vals = plain.decode_inputs(blocks, ck, stride)  # what the container gives the decoder
-    dk = interp.decompress_blocks(ck, anchors, keys, vals, twoeb, steps, stride)
-    dp = plain.decompress_blocks(ck, anchors, keys, vals, twoeb, steps, stride)
-    dec_err = float((dk - dp).abs().max())
-    check(torch.equal(dk, dp), f"main-path shapes: decode kernel vs plain differs by {dec_err}")
-    check(torch.equal(dk, rk), "main-path shapes: decode != encoder recon")
-    del dk, dp, rk, ckr
     ops_pred, n_pts = interp_ops(interp.pack_steps(steps, stride))
-    enc_ms = cuda_ms(lambda: interp.compress_blocks(blocks, twoeb, steps, stride, with_recon=False), 10)
     enc_plain = cuda_ms(lambda: plain.compress_blocks(blocks, twoeb, steps, stride), 2)
-    dec_ms = cuda_ms(lambda: interp.decompress_blocks(ck, anchors, keys, vals, twoeb, steps, stride), 10)
     dec_plain = cuda_ms(lambda: plain.decompress_blocks(ck, anchors, keys, vals, twoeb, steps, stride), 2)
     seq = pipelines.decode(sections[0], device=device)  # the hf stage's input on the main path
     h_err = int((hist.histogram256(seq) - torch.bincount(seq, minlength=256)).abs().max())
@@ -576,11 +630,11 @@ def main() -> int:
     kernels = [
         {"name": "interp_encode", "route": "cuda", "source": "src/repro_torch/csrc/interp3d.cu",
          "replaces": "src/repro/kernels/interp3d/interp3d.py:61", "launches": launches["interp_encode"],
-         "max_abs_err": enc_err, "ms": enc_ms, "plain_ms": enc_plain, "bound_ms": enc_b[0],
+         "max_abs_err": im["encode_err"], "ms": im["encode_ms"], "plain_ms": enc_plain, "bound_ms": enc_b[0],
          "bound_by": enc_b[1], "library_ms": None},
         {"name": "interp_decode", "route": "cuda", "source": "src/repro_torch/csrc/interp3d.cu",
          "replaces": "src/repro/core/predictor.py:88", "launches": launches["interp_decode"],
-         "max_abs_err": dec_err, "ms": dec_ms, "plain_ms": dec_plain, "bound_ms": dec_b[0],
+         "max_abs_err": im["decode_err"], "ms": im["decode_ms"], "plain_ms": dec_plain, "bound_ms": dec_b[0],
          "bound_by": dec_b[1], "library_ms": None},
         {"name": "histogram256", "route": "cuda", "source": "src/repro_torch/csrc/histogram.cu",
          "replaces": "src/repro/kernels/histogram/histogram.py:19", "launches": launches["histogram256"],
@@ -593,7 +647,7 @@ def main() -> int:
     say(f"main-path shapes: {nb} blocks of 17^3 (kernels == plain bit for bit, {keys.numel()} outlier keys), "
         f"hf input {seq.numel()} bytes")
     results["kernels"] = kernels
-    del blocks, ck, anchors, keys, vals, seq
+    del im, blocks, ck, anchors, keys, vals, seq
 
     # 7. where the time goes
     results["profile"] = {name: phase_profile(comps[name], x, name) for name in PATHS}

@@ -132,6 +132,29 @@ def test_outliers_on_shared_faces_decode_within_the_bound(anchor_stride):
     assert _err_over_eb(x, R.Compressor().decompress(tb), tb) <= 1 + SLACK
 
 
+@pytest.mark.parametrize("package", ["torch", "jax"])
+def test_full_verify_repairs_a_float32_overshoot_at_an_absolute_bound(package):
+    """Values near 100 under an absolute bound of 1e-2: one float32 ulp at
+    100 is 7.6e-6, so the reconstruction can land beyond eb * (1 + 1e-4).
+    Unverified, it does; verify="full" sees it and one repair (a halved
+    bound) holds the declared bound. Both packages behave alike."""
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((40, 40, 40)).astype(np.float32).cumsum(0)
+    x[:, 10:14] += 100.0
+    mod, kw = (T, {"device": "cpu"}) if package == "torch" else (R, {})
+
+    def roundtrip(verify):
+        comp = mod.Compressor(mod.CompressorSpec(eb=1e-2, eb_mode="abs", verify=verify), **kw)
+        buf = comp.compress(x)
+        return np.asarray(mod.Compressor(**kw).decompress(buf)), buf, comp.last_telemetry
+
+    y, buf, _ = roundtrip("off")
+    assert _err_over_eb(x, y, buf) > 1 + SLACK
+    y, buf, tel = roundtrip("full")
+    assert tel["verify"]["repairs"] == 1 and tel["verify"]["checked"] == x.size
+    assert float(np.abs(y.astype(np.float64) - x).max()) <= 1e-2
+
+
 @pytest.mark.parametrize("shape", [(12, 10, 9), (1,), (40,), (3, 4, 5, 6)])
 def test_constant_field(shape):
     x = np.full(shape, 3.25, np.float32)
