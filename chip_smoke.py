@@ -11,12 +11,15 @@ Phases, in order; any failure exits non-zero:
      and decode bit for bit (torch.equal, and decode == the encoder's recon)
      over rank 1-3 x anchor stride 16/8/4 x spline x scheme on random, smooth
      and outlier-heavy blocks, at block counts 1, 131, 133, 4096 and 4097;
-     the interp kernels' registers, shared memory and spills are printed
-     from the ptxas report in phase 2; histogram256 against
-     torch.bincount at ragged and unaligned lengths, bitshuffle and
-     bitunshuffle (exact, and against the host bit1 stage) at ragged lengths
-     up to 512^3, the Lorenzo encode (exact) on 1-D, 2-D, 3-D and batched
-     fields with forced outliers and int32 saturation;
+     every kernel's registers, shared memory and spills are printed from
+     the ptxas report in phase 2; histogram256 against torch.bincount at
+     ragged lengths up to 512^3 and every head offset 0-15, on one byte
+     value everywhere (0, 128, 255), uniform and 90 % center-code streams;
+     bitshuffle and bitunshuffle (exact, and against the host bit1 stage)
+     at ragged lengths up to 512^3; the Lorenzo encode (exact) on 1-D, 2-D,
+     3-D and batched fields around its tile's edges (Z in {1, 31, 33, 127,
+     129, 513}, Y in {1, 7, 9}, X == 1, a 700-plane march) with forced
+     outliers and int32 saturation, an all-outlier and a one-outlier field;
   4. four paths at full size on one Nyx-like lognormal 512^3 float32 field
      made on the card from --seed: the main path (the default spec: interp,
      autotune, pipeline cr), then the presets cusz_hi_tp (pipeline tp),
@@ -27,7 +30,8 @@ Phases, in order; any failure exits non-zero:
      on a 96^3 field (the Lorenzo containers byte-equal);
   6. per-kernel times at the paths' shapes (CUDA events) beside the plain
      version, the byte/operation bound and, for the histogram,
-     torch.bincount as a library yardstick;
+     torch.bincount as a library yardstick; the histogram also on a uniform
+     random stream of the main path's length;
   7. where the time goes: one more compress + decompress of the field on
      each path under torch.profiler, by tracing span (host wall and device
      time) and by device kernel, with the device's idle share.
@@ -123,6 +127,20 @@ def cuda_ms(fn, iters: int) -> float:
 
 
 INTERP_SPLINES = ("linear", "cubic", "natural-cubic")
+HIST_STREAMS = ("const0", "const128", "const255", "uniform", "center90")
+
+
+def hist_stream(kind: str, n: int, g):
+    """n bytes on the card: one value everywhere (constN), uniform, or 90 %
+    the center code 128 (the compressor's code streams)."""
+    import torch
+
+    if kind.startswith("const"):
+        return torch.full((n,), int(kind[5:]), dtype=torch.uint8, device=g.device)
+    d = torch.randint(0, 256, (n,), generator=g, device=g.device, dtype=torch.uint8)
+    if kind == "center90":
+        d[torch.rand(n, generator=g, device=g.device) < 0.9] = 128
+    return d
 
 
 def interp_cases() -> list[tuple]:
@@ -146,6 +164,32 @@ def interp_cases() -> list[tuple]:
         for nb in (1, 131, 133, 4097):
             cases.append((nd, "outliers", nb, 16, "cubic", "md"))
     return cases
+
+
+def lorenzo_shapes() -> list[tuple]:
+    """(shape, spatial dims) of phase 3's Lorenzo fields: every Z in {1, 31,
+    33, 127, 129, 513} (around the 128-point warp) with every Y in {1, 7, 9}
+    (around the 8-row tile), X == 1, a long march, batched fields, 1-D and
+    2-D, beside the shapes of earlier checks."""
+    shapes = [((1_000_003,), 1), ((37, 45), 2), ((1000, 999), 2), ((33, 35, 70), 3), ((129, 257, 100), 3),
+              ((3, 9, 31, 40), 3), ((4, 6, 65, 63), 2), ((7, 3001), 1), ((1, 1, 1), 3)]
+    shapes += [((5, y, z), 3) for y in (1, 7, 9) for z in (1, 31, 33, 127, 129, 513)]
+    shapes += [((1, 9, 129), 3), ((1, 7, 513), 3), ((700, 9, 33), 3), ((3, 40, 9, 129), 3), ((4, 33, 70), 2),
+               ((2, 3, 600), 1)]
+    return shapes
+
+
+def lorenzo_case_field(kind: str, shape, device):
+    """Every point an outlier (a checkerboard of +-500 at 2eb 0.02), or only
+    the last one (a spike there)."""
+    import torch
+
+    if kind == "all-outliers":
+        ix = torch.stack(torch.meshgrid(*[torch.arange(s, device=device) for s in shape], indexing="ij")).sum(0)
+        return (ix % 2).float() * 1000.0 - 500.0
+    x = torch.zeros(shape, device=device)
+    x.view(-1)[-1] = 50.0
+    return x
 
 
 def phase_kernels(device, seed: int) -> None:
@@ -205,17 +249,16 @@ def phase_kernels(device, seed: int) -> None:
     say(f"interp encode/decode == plain bit for bit in {len(cases)} cases (ndim 1-3, strides 16/8/4, "
         f"nb 1..4097, {n_outliers} outliers in all), worst err/eb {worst_ratio:.6f}, "
         f"decode == encoder recon in every case")
-    sizes = (0, 1, 8191, 8193, 10**6 + 3, 512**3)
-    for n in sizes:
-        for skew in (False, True):
-            d = torch.randint(0, 256, (n + 3,), generator=g, device=device, dtype=torch.uint8)
-            if skew:  # quantization-code-like: mostly the center code
-                d = torch.where(torch.rand(n + 3, generator=g, device=device) < 0.9, torch.full_like(d, 128), d)
-            for off in (0, 3):  # 3: an unaligned start exercises the scalar head
-                x = d[off : off + n]
+    sizes = (0, 1, 15, 16, 17, 8191, 8193, 10**6 + 3, 512**3)
+    for kind in HIST_STREAMS:
+        base = hist_stream(kind, max(sizes) + 15, g)
+        for n in sizes:
+            for off in range(16):  # every head offset of the 16-B vectors
+                x = base[off : off + n]
                 check(torch.equal(hist.histogram256(x), torch.bincount(x, minlength=256)),
-                      f"histogram256 != bincount (n={n}, offset={off}, skewed={skew})")
-    say(f"histogram256 == torch.bincount for n in {sizes}, aligned and unaligned, uniform and skewed")
+                      f"histogram256 != bincount (n={n}, offset={off}, stream {kind})")
+        del base
+    say(f"histogram256 == torch.bincount for n in {sizes} at offsets 0-15, streams {', '.join(HIST_STREAMS)}")
     phase_bits_lorenzo(device, g)
 
 
@@ -246,21 +289,26 @@ def phase_bits_lorenzo(device, g) -> None:
               torch.equal(bits.bitunshuffle(planes, block), bits.bitunshuffle_plain(planes, block)),
               f"bitshuffle kernels != plain at block {block}")
     say(f"bitshuffle / bitunshuffle == plain and == the host bit1 stage for n in {sizes}, aligned and unaligned")
-    shapes = [((1_000_003,), 1), ((37, 45), 2), ((1000, 999), 2), ((33, 35, 70), 3), ((129, 257, 100), 3),
-              ((3, 9, 31, 40), 3), ((4, 6, 65, 63), 2), ((7, 3001), 1), ((1, 1, 1), 3)]
+    def lorenzo_check(x, twoeb, nd, label):
+        codes, idx, vals = lor.lorenzo_encode(x, twoeb, nd)
+        pc, po, pfull = plain_lorenzo.lorenzo_encode(x, twoeb, nd)
+        pidx = torch.nonzero(po.reshape(-1)).reshape(-1)
+        check(torch.equal(codes, pc) and torch.equal(idx, pidx) and torch.equal(vals, pfull.reshape(-1)[pidx]),
+              f"lorenzo encode != plain ({label})")
+        return int(idx.numel())
+
+    shapes = lorenzo_shapes()
     n_out = 0
     for shape, nd in shapes:
         for twoeb, scale in ((0.02, 1.0), (2e-6, 1e4)):  # 2e-6 on |x| ~ 1e4: x / 2eb passes 2^31
             x = torch.randn(shape, generator=g, device=device).cumsum(-1) * scale
             x.view(-1)[:: 101] += 500.0 * scale  # forced outliers
-            codes, idx, vals = lor.lorenzo_encode(x, twoeb, nd)
-            pc, po, pfull = plain_lorenzo.lorenzo_encode(x, twoeb, nd)
-            pidx = torch.nonzero(po.reshape(-1)).reshape(-1)
-            check(torch.equal(codes, pc) and torch.equal(idx, pidx) and torch.equal(vals, pfull.reshape(-1)[pidx]),
-                  f"lorenzo encode != plain (shape {shape}, ndim {nd}, 2eb {twoeb})")
-            n_out += int(idx.numel())
-    say(f"lorenzo encode == plain (codes, ascending outlier indices, deltas) on {len(shapes)} shapes x 2 bounds, "
-        f"{n_out} outliers in all")
+            n_out += lorenzo_check(x, twoeb, nd, f"shape {shape}, ndim {nd}, 2eb {twoeb}")
+    for kind, expect in (("all-outliers", 100 * 100 * 260), ("one-outlier", 1)):
+        got = lorenzo_check(lorenzo_case_field(kind, (100, 100, 260), device), 0.02, 3, kind)
+        check(got == expect, f"lorenzo encode: {got} outliers in the {kind} field, not {expect}")
+    say(f"lorenzo encode == plain (codes, ascending outlier indices, deltas) on {len(shapes)} shapes x 2 bounds "
+        f"({n_out} outliers in all), an all-outlier and a one-outlier field")
 
 
 def _is_span(name: str) -> bool:
@@ -270,7 +318,8 @@ def _is_span(name: str) -> bool:
 def ptxas_report(log: pathlib.Path) -> list[str]:
     """Per kernel of an ``nvcc -Xptxas -v`` log: its registers, shared
     memory and spills, one line each, the interp kernels named with their
-    (ndim, anchor stride) instantiation."""
+    (ndim, anchor stride) instantiation and the Lorenzo kernel with its
+    (tile rows, vector loads)."""
     import re
 
     if not log.exists():
@@ -279,8 +328,11 @@ def ptxas_report(log: pathlib.Path) -> list[str]:
     for line in log.read_text().splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            t = re.search(r"(interp_(?:en|de)code_kernel)ILi(\d)ELi(\d+)E", m.group(1))
-            name = f"{t.group(1)}<{t.group(2)},{t.group(3)}>" if t else m.group(1)
+            t = (re.search(r"(interp_(?:en|de)code_kernel)ILi(\d)ELi(\d+)E", m.group(1))
+                 or re.search(r"(lorenzo_kernel)ILi(\d)ELb([01])E", m.group(1)))
+            plain_name = re.search(r"\d+([A-Za-z]\w*_kernel)", m.group(1))
+            name = (f"{t.group(1)}<{t.group(2)},{t.group(3)}>" if t
+                    else plain_name.group(1) if plain_name else m.group(1))
         elif "spill" in line:
             spill = line.strip()
         elif "registers" in line:
@@ -447,74 +499,82 @@ def run_path(name: str, comp, x, expect) -> tuple[dict, bytes]:
             "telemetry_decompress": tel_d, "launches": launches}, buf
 
 
-def bits_lorenzo_times(x, bufs: dict, paths: dict, bound) -> list[dict]:
-    """Phase 6 for the bitshuffle and Lorenzo kernels at the paths' shapes:
-    the fz path's bit1 input (the 512^3 Lorenzo codes) and its field."""
+def bitshuffle_path_shapes(buf_fz: bytes, device, iters: int) -> dict:
+    """The bitshuffle kernels at the fz path's bit1 input (the 512^3 Lorenzo
+    codes, from the container ``buf_fz``): checked against their plain
+    versions and the round trip, then timed with CUDA events."""
     import torch
 
-    from repro_torch.core import lorenzo as plain_lorenzo
     from repro_torch.core.compressor import _sections_unpack
     from repro_torch.core.lossless import pipelines
     from repro_torch.kernels import bitshuffle as bits
-    from repro_torch.kernels import lorenzo3d as lor
 
-    header, sections = _sections_unpack(bufs["fzgpu_like"])
-    seq = pipelines.decode(sections[0], device=x.device)  # bit1's input: bit1 is the fz pipeline's first stage
+    seq = pipelines.decode(_sections_unpack(buf_fz)[1][0], device=device)  # bit1 is fz's first stage
     planes = bits.bitshuffle(seq)
     bs_err = int((planes.int() - bits.bitshuffle_plain(seq).int()).abs().max())
     check(bs_err == 0, f"path shapes: bitshuffle differs from plain by {bs_err}")
     back = bits.bitunshuffle(planes)
     bu_err = int((back.int() - bits.bitunshuffle_plain(planes).int()).abs().max())
     check(bu_err == 0 and torch.equal(back[: seq.numel()], seq), f"path shapes: bitunshuffle differs by {bu_err}")
-    bs_ms = cuda_ms(lambda: bits.bitshuffle(seq), 20)
-    bs_plain = cuda_ms(lambda: bits.bitshuffle_plain(seq), 3)
-    bu_ms = cuda_ms(lambda: bits.bitunshuffle(planes), 20)
-    bu_plain = cuda_ms(lambda: bits.bitunshuffle_plain(planes), 3)
-    n, nb = int(seq.numel()), int(planes.numel())
-    # bitshuffle reads n bytes and writes the padded planes; about 30 integer operations per 8 bytes
-    bs_b = bound(n + nb, 30 * nb / 8)
-    bu_b = bound(2 * nb, 30 * nb / 8)
-    del back, planes
-    twoeb = 2.0 * float(header["eb_abs"])
-    nd = len(header["spatial"])
+    del back
+    return {"n": int(seq.numel()), "padded": int(planes.numel()), "bs_err": bs_err, "bu_err": bu_err,
+            "bs_ms": cuda_ms(lambda: bits.bitshuffle(seq), iters),
+            "bs_plain_ms": cuda_ms(lambda: bits.bitshuffle_plain(seq), 3),
+            "bu_ms": cuda_ms(lambda: bits.bitunshuffle(planes), iters),
+            "bu_plain_ms": cuda_ms(lambda: bits.bitunshuffle_plain(planes), 3)}
+
+
+def lorenzo_path_shapes(x, buf_fz: bytes, iters: int) -> dict:
+    """The Lorenzo encode at the fz path's shapes: the field ``x`` under the
+    bound of its container ``buf_fz``. The wrapper call (kernel, host read of
+    the outlier count, sort) is checked against the plain version (codes,
+    ascending outlier indices, deltas) and timed with CUDA events."""
+    import torch
+
+    from repro_torch.core import lorenzo as plain_lorenzo
+    from repro_torch.core.compressor import _sections_unpack
+    from repro_torch.kernels import lorenzo3d as lor
+
+    header = _sections_unpack(buf_fz)[0]
+    twoeb, nd = 2.0 * float(header["eb_abs"]), len(header["spatial"])
     xb = x.reshape((int(header["batch"]),) + tuple(header["spatial"]))
     codes, idx, vals = lor.lorenzo_encode(xb, twoeb, nd)
     pc, po, pfull = plain_lorenzo.lorenzo_encode(xb, twoeb, nd)
     pidx = torch.nonzero(po.reshape(-1)).reshape(-1)
-    l_err = max(int((codes.int() - pc.int()).abs().max()),
-                int((vals.long() - pfull.reshape(-1)[pidx].long()).abs().max()) if idx.numel() else 0)
-    check(torch.equal(idx, pidx) and l_err == 0, f"path shapes: lorenzo encode differs from plain by {l_err}")
-    del pc, po, pfull, pidx
-    l_ms = cuda_ms(lambda: lor.lorenzo_encode(xb, twoeb, nd), 10)
+    err = max(int((codes.int() - pc.int()).abs().max()),
+              int((vals.long() - pfull.reshape(-1)[pidx].long()).abs().max()) if idx.numel() else 0)
+    check(torch.equal(idx, pidx) and err == 0, f"path shapes: lorenzo encode differs from plain by {err}")
+    del pc, po, pfull, pidx, codes
 
     def plain_call():
         c, o, full = plain_lorenzo.lorenzo_encode(xb, twoeb, nd)
         i = torch.nonzero(o.reshape(-1)).reshape(-1)
         return c, i, full.reshape(-1)[i]
 
-    l_plain = cuda_ms(plain_call, 3)
-    m = int(xb.numel())
-    # reads the f32 field, writes u8 codes and 12 B per outlier; one division,
-    # one rounding and a dozen integer operations per point
-    l_b = bound(5 * m + 12 * int(idx.numel()), 14 * m)
-    say(f"path shapes: bit1 input {n} bytes ({nb} padded), Lorenzo field {tuple(xb.shape)} with "
-        f"{int(idx.numel())} outliers")
-    launches = {name: paths[name]["launches"] for name in paths}
-    return [
-        {"name": "bitshuffle", "route": "cuda", "source": "src/repro_torch/csrc/bitshuffle.cu",
-         "replaces": "src/repro/kernels/bitshuffle/bitshuffle.py:19", "launches": launches["fzgpu_like"]["bitshuffle"],
-         "path": "fzgpu_like", "max_abs_err": bs_err, "ms": bs_ms, "plain_ms": bs_plain, "bound_ms": bs_b[0],
-         "bound_by": bs_b[1], "library_ms": None},
-        {"name": "bitunshuffle", "route": "cuda", "source": "src/repro_torch/csrc/bitshuffle.cu",
-         "replaces": "src/repro/kernels/bitshuffle/bitshuffle.py:32",
-         "launches": sum(launches[name]["bitunshuffle"] for name in launches),
-         "path": None, "max_abs_err": bu_err, "ms": bu_ms, "plain_ms": bu_plain, "bound_ms": bu_b[0],
-         "bound_by": bu_b[1], "library_ms": None},
-        {"name": "lorenzo_encode", "route": "cuda", "source": "src/repro_torch/csrc/lorenzo3d.cu",
-         "replaces": "src/repro/kernels/lorenzo3d/lorenzo3d.py:22",
-         "launches": launches["fzgpu_like"]["lorenzo_encode"], "path": "fzgpu_like", "max_abs_err": l_err,
-         "ms": l_ms, "plain_ms": l_plain, "bound_ms": l_b[0], "bound_by": l_b[1], "library_ms": None},
-    ]
+    return {"shape": tuple(xb.shape), "points": int(xb.numel()), "n_outliers": int(idx.numel()), "err": err,
+            "ms": cuda_ms(lambda: lor.lorenzo_encode(xb, twoeb, nd), iters), "plain_ms": cuda_ms(plain_call, 3)}
+
+
+def histogram_path_shapes(seq, g, iters: int) -> dict:
+    """histogram256 at the main path's hf input ``seq`` (mostly the center
+    code) and on a uniform random stream of its length: each checked against
+    torch.bincount and timed with CUDA events, beside the plain version and
+    torch.bincount itself on ``seq``."""
+    import torch
+
+    from repro_torch.kernels import histogram as hist
+
+    err = int((hist.histogram256(seq) - torch.bincount(seq, minlength=256)).abs().max())
+    check(err == 0, f"main-path shapes: histogram256 differs from torch.bincount by {err}")
+    uni = hist_stream("uniform", int(seq.numel()), g)
+    u_err = int((hist.histogram256(uni) - torch.bincount(uni, minlength=256)).abs().max())
+    check(u_err == 0, f"uniform stream: histogram256 differs from torch.bincount by {u_err}")
+    out = {"n": int(seq.numel()), "err": err, "uniform_ms": cuda_ms(lambda: hist.histogram256(uni), iters)}
+    del uni
+    out.update(ms=cuda_ms(lambda: hist.histogram256(seq), iters),
+               plain_ms=cuda_ms(lambda: hist.histogram256_plain(seq), iters),
+               library_ms=cuda_ms(lambda: torch.bincount(seq, minlength=256), iters))
+    return out
 
 
 def main() -> int:
@@ -535,7 +595,6 @@ def main() -> int:
     from repro_torch.core import predictor as plain
     from repro_torch.core.compressor import _sections_unpack
     from repro_torch.core.lossless import pipelines
-    from repro_torch.kernels import histogram as hist
     from repro_torch.kernels import interp3d as interp
     from repro_torch.kernels.build import build, build_dir
 
@@ -610,11 +669,9 @@ def main() -> int:
     enc_plain = cuda_ms(lambda: plain.compress_blocks(blocks, twoeb, steps, stride), 2)
     dec_plain = cuda_ms(lambda: plain.decompress_blocks(ck, anchors, keys, vals, twoeb, steps, stride), 2)
     seq = pipelines.decode(sections[0], device=device)  # the hf stage's input on the main path
-    h_err = int((hist.histogram256(seq) - torch.bincount(seq, minlength=256)).abs().max())
-    check(h_err == 0, f"main-path shapes: histogram256 differs from torch.bincount by {h_err}")
-    h_ms = cuda_ms(lambda: hist.histogram256(seq), 20)
-    h_plain = cuda_ms(lambda: hist.histogram256_plain(seq), 20)
-    h_lib = cuda_ms(lambda: torch.bincount(seq, minlength=256), 20)
+    hs = histogram_path_shapes(seq, torch.Generator(device=device).manual_seed(args.seed + 2), 20)
+    bs = bitshuffle_path_shapes(bufs["fzgpu_like"], device, 20)
+    lz = lorenzo_path_shapes(x, bufs["fzgpu_like"], 10)
 
     def bound(nbytes: float, ops: float):
         tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
@@ -625,28 +682,50 @@ def main() -> int:
     # writes the f32 recon
     enc_b = bound(nb * V * (4 + 1), nb * (ops_pred + 5 * n_pts))
     dec_b = bound(nb * V * (1 + 4) + anchors.numel() * 4 + keys.numel() * (8 + 4), nb * (ops_pred + 2 * n_pts))
-    hist_b = bound(seq.numel() + 256 * 8, seq.numel())
-    launches = results["paths"]["main"]["launches"]
+    hist_b = bound(hs["n"] + 256 * 8, hs["n"])
+    # bitshuffle reads n bytes and writes the padded planes; about 30 integer operations per 8 bytes
+    bs_b = bound(bs["n"] + bs["padded"], 30 * bs["padded"] / 8)
+    bu_b = bound(2 * bs["padded"], 30 * bs["padded"] / 8)
+    # Lorenzo: reads the f32 field, writes u8 codes and 12 B per outlier; one division,
+    # one rounding and a dozen integer operations per point
+    lz_b = bound(5 * lz["points"] + 12 * lz["n_outliers"], 14 * lz["points"])
+    launches = {name: results["paths"][name]["launches"] for name in PATHS}
     kernels = [
         {"name": "interp_encode", "route": "cuda", "source": "src/repro_torch/csrc/interp3d.cu",
-         "replaces": "src/repro/kernels/interp3d/interp3d.py:61", "launches": launches["interp_encode"],
-         "max_abs_err": im["encode_err"], "ms": im["encode_ms"], "plain_ms": enc_plain, "bound_ms": enc_b[0],
-         "bound_by": enc_b[1], "library_ms": None},
+         "replaces": "src/repro/kernels/interp3d/interp3d.py:61", "launches": launches["main"]["interp_encode"],
+         "path": "main", "max_abs_err": im["encode_err"], "ms": im["encode_ms"], "plain_ms": enc_plain,
+         "bound_ms": enc_b[0], "bound_by": enc_b[1], "library_ms": None},
         {"name": "interp_decode", "route": "cuda", "source": "src/repro_torch/csrc/interp3d.cu",
-         "replaces": "src/repro/core/predictor.py:88", "launches": launches["interp_decode"],
-         "max_abs_err": im["decode_err"], "ms": im["decode_ms"], "plain_ms": dec_plain, "bound_ms": dec_b[0],
-         "bound_by": dec_b[1], "library_ms": None},
+         "replaces": "src/repro/core/predictor.py:88", "launches": launches["main"]["interp_decode"],
+         "path": "main", "max_abs_err": im["decode_err"], "ms": im["decode_ms"], "plain_ms": dec_plain,
+         "bound_ms": dec_b[0], "bound_by": dec_b[1], "library_ms": None},
         {"name": "histogram256", "route": "cuda", "source": "src/repro_torch/csrc/histogram.cu",
-         "replaces": "src/repro/kernels/histogram/histogram.py:19", "launches": launches["histogram256"],
-         "max_abs_err": h_err, "ms": h_ms, "plain_ms": h_plain, "bound_ms": hist_b[0],
-         "bound_by": hist_b[1], "library_ms": h_lib},
+         "replaces": "src/repro/kernels/histogram/histogram.py:19", "launches": launches["main"]["histogram256"],
+         "path": "main", "max_abs_err": hs["err"], "ms": hs["ms"], "plain_ms": hs["plain_ms"],
+         "bound_ms": hist_b[0], "bound_by": hist_b[1], "library_ms": hs["library_ms"]},
+        {"name": "bitshuffle", "route": "cuda", "source": "src/repro_torch/csrc/bitshuffle.cu",
+         "replaces": "src/repro/kernels/bitshuffle/bitshuffle.py:19",
+         "launches": launches["fzgpu_like"]["bitshuffle"], "path": "fzgpu_like", "max_abs_err": bs["bs_err"],
+         "ms": bs["bs_ms"], "plain_ms": bs["bs_plain_ms"], "bound_ms": bs_b[0], "bound_by": bs_b[1],
+         "library_ms": None},
+        {"name": "bitunshuffle", "route": "cuda", "source": "src/repro_torch/csrc/bitshuffle.cu",
+         "replaces": "src/repro/kernels/bitshuffle/bitshuffle.py:32",
+         "launches": sum(launches[name]["bitunshuffle"] for name in launches), "path": None,
+         "max_abs_err": bs["bu_err"], "ms": bs["bu_ms"], "plain_ms": bs["bu_plain_ms"], "bound_ms": bu_b[0],
+         "bound_by": bu_b[1], "library_ms": None},
+        {"name": "lorenzo_encode", "route": "cuda", "source": "src/repro_torch/csrc/lorenzo3d.cu",
+         "replaces": "src/repro/kernels/lorenzo3d/lorenzo3d.py:22",
+         "launches": launches["fzgpu_like"]["lorenzo_encode"], "path": "fzgpu_like", "max_abs_err": lz["err"],
+         "ms": lz["ms"], "plain_ms": lz["plain_ms"], "bound_ms": lz_b[0], "bound_by": lz_b[1], "library_ms": None},
     ]
-    for k in kernels:
-        k["path"] = "main"
-    kernels += bits_lorenzo_times(x, bufs, results["paths"], bound)
     say(f"main-path shapes: {nb} blocks of 17^3 (kernels == plain bit for bit, {keys.numel()} outlier keys), "
-        f"hf input {seq.numel()} bytes")
+        f"hf input {hs['n']} bytes")
+    say(f"fz-path shapes: bit1 input {bs['n']} bytes ({bs['padded']} padded), Lorenzo field {lz['shape']} with "
+        f"{lz['n_outliers']} outliers")
+    say(f"histogram256 on a uniform random stream of {hs['n']} bytes: {hs['uniform_ms']:.4f} ms "
+        f"(on the main path's stream: {hs['ms']:.4f} ms)")
     results["kernels"] = kernels
+    results["histogram_uniform_ms"] = hs["uniform_ms"]
     del im, blocks, ck, anchors, keys, vals, seq
 
     # 7. where the time goes

@@ -1,4 +1,4 @@
-"""Wrapper of the Lorenzo encode CUDA kernels (csrc/lorenzo3d.cu).
+"""Wrapper of the Lorenzo encode CUDA kernel (csrc/lorenzo3d.cu).
 
 ``lorenzo_encode`` replaces the TPU kernel
 ``src/repro/kernels/lorenzo3d/lorenzo3d.py::_kernel`` (reached through
@@ -6,10 +6,11 @@
 ``repro.core.lorenzo.lorenzo_encode`` fused in. Its plain version is
 :func:`repro_torch.core.lorenzo.lorenzo_encode`.
 
-On a CUDA tensor the wrapper launches the kernels or raises; a CPU tensor,
+On a CUDA tensor the wrapper launches the kernel or raises; a CPU tensor,
 and only a CPU tensor, goes to the plain version. ``LAUNCHES`` counts the
-calls that launched them: a codes pass, then, when the field has outliers,
-an outlier pass that writes them in order.
+kernel's launches: one per call, two when the outliers overflow the list
+it sized first. The kernel writes the outliers in no order; the wrapper
+sorts them by flat index, as ``torch.nonzero`` gives them.
 """
 from __future__ import annotations
 
@@ -23,29 +24,37 @@ from ...core import lorenzo as _plain
 from ..build import library
 
 LAUNCHES = {"lorenzo_encode": 0}
+TILE_Y = 8    # rows of y in a tile where Y > 1, plus a halo row
+WARP_Z = 128  # points of z per warp; a tile has 8 // ty warps along z
+MARCH = 32    # planes of x each CTA takes
 
 
 @functools.lru_cache(maxsize=None)
 def _lib():
     lib = library("lorenzo3d")
     vp, i64, i32, f = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
-    lib.lorenzo_tile.argtypes = []
-    lib.lorenzo_tile.restype = ctypes.c_int
-    lib.lorenzo_codes.argtypes = [vp, i64, i32, i32, i32, f, vp, vp, vp]
-    lib.lorenzo_codes.restype = ctypes.c_int
-    lib.lorenzo_outliers.argtypes = [vp, i64, i32, i32, i32, f, vp, vp, vp, vp, vp]
-    lib.lorenzo_outliers.restype = ctypes.c_int
+    lib.lorenzo_encode.argtypes = [vp, i64, i64, i64, i64, i32, i64, f, vp, vp, vp, i64, vp, vp]
+    lib.lorenzo_encode.restype = ctypes.c_int
     return lib
 
 
-def _field_geometry(shape, ndim_spatial: int) -> tuple[int, int, int, int]:
-    """(rows, X, Y, Z) of a (batch.., spatial) shape: 1-D and 2-D fields run
-    as (rows, 1, 1, Z) and (rows, 1, Y, Z)."""
+def launch_plan(shape, ndim_spatial: int) -> tuple[int, int, int, int, int]:
+    """(rows, X, Y, Z, ty) of a (batch.., spatial) shape as the kernel takes
+    it: 1-D fields as (rows, 1, 1, Z), 2-D fields (Y, Z) as (rows, Y, 1, Z),
+    whose delta is the same and which march along Y; ``ty`` is the tile's
+    rows of y, TILE_Y where Y > 1, else 1."""
     if not 0 <= ndim_spatial <= 3 or ndim_spatial > len(shape):
         raise ValueError(f"lorenzo_encode takes 0..3 spatial dims of a {len(shape)}-D tensor, got {ndim_spatial}")
-    spatial = (1,) * (3 - ndim_spatial) + tuple(int(s) for s in shape[len(shape) - ndim_spatial:])
+    X, Y, Z = (1,) * (3 - ndim_spatial) + tuple(int(s) for s in shape[len(shape) - ndim_spatial:])
+    if X == 1:
+        X, Y = Y, 1
     rows = int(np.prod(shape[: len(shape) - ndim_spatial], dtype=np.int64))
-    return (rows,) + spatial
+    return rows, X, Y, Z, TILE_Y if Y > 1 else 1
+
+
+def outlier_capacity(n: int) -> int:
+    """Slots of the first outlier list: 1/64 of the points, at least 1024."""
+    return min(n, max(1024, n // 64))
 
 
 def lorenzo_encode(x: torch.Tensor, twoeb: float, ndim_spatial: int | None = None):
@@ -65,34 +74,35 @@ def lorenzo_encode(x: torch.Tensor, twoeb: float, ndim_spatial: int | None = Non
         raise TypeError(f"lorenzo_encode takes float32, got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError("lorenzo_encode takes a contiguous tensor")
-    rows, X, Y, Z = _field_geometry(tuple(x.shape), nd)
-    if rows * X * Y >= 2**32 or Z >= 2**31:
+    rows, X, Y, Z, ty = launch_plan(tuple(x.shape), nd)
+    tiles = -(-Z // (8 // ty * WARP_Z)) * -(-Y // ty) * -(-X // MARCH) * rows
+    if Z > 2**30 or tiles >= 2**31:
         raise ValueError(f"lorenzo_encode: field {tuple(x.shape)} exceeds the kernel's index range")
     dev = x.device
     n = int(x.numel())
     codes = torch.empty(x.shape, dtype=torch.uint8, device=dev)
-    idx = torch.empty(0, dtype=torch.int64, device=dev)
-    vals = torch.empty(0, dtype=torch.int32, device=dev)
     if n == 0:
-        return codes, idx, vals
+        return codes, torch.empty(0, dtype=torch.int64, device=dev), torch.empty(0, dtype=torch.int32, device=dev)
     lib = _lib()
-    ncta = -(-n // lib.lorenzo_tile())
-    counts = torch.empty(ncta, dtype=torch.int32, device=dev)
-    geo = (ctypes.c_void_p(x.data_ptr()), n, X, Y, Z, float(np.float32(twoeb)))
+    count = torch.empty(1, dtype=torch.int64, device=dev)
+    cap = outlier_capacity(n)
     with torch.cuda.device(dev):
         stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-        rc = lib.lorenzo_codes(*geo, ctypes.c_void_p(codes.data_ptr()), ctypes.c_void_p(counts.data_ptr()), stream)
-        if rc != 0:
-            raise RuntimeError(f"lorenzo_codes launch failed with CUDA error {rc}")
-        LAUNCHES["lorenzo_encode"] += 1
-        ends = torch.cumsum(counts, 0)
-        total = int(ends[-1])
-        if total:
-            starts = ends - counts
-            idx = torch.empty(total, dtype=torch.int64, device=dev)
-            vals = torch.empty(total, dtype=torch.int32, device=dev)
-            rc = lib.lorenzo_outliers(*geo, ctypes.c_void_p(starts.data_ptr()), ctypes.c_void_p(counts.data_ptr()),
-                                      ctypes.c_void_p(idx.data_ptr()), ctypes.c_void_p(vals.data_ptr()), stream)
+        while True:
+            idx = torch.empty(cap, dtype=torch.int64, device=dev)
+            vals = torch.empty(cap, dtype=torch.int32, device=dev)
+            rc = lib.lorenzo_encode(ctypes.c_void_p(x.data_ptr()), rows, X, Y, Z, ty, MARCH, float(np.float32(twoeb)),
+                                    ctypes.c_void_p(codes.data_ptr()), ctypes.c_void_p(idx.data_ptr()),
+                                    ctypes.c_void_p(vals.data_ptr()), cap, ctypes.c_void_p(count.data_ptr()), stream)
             if rc != 0:
-                raise RuntimeError(f"lorenzo_outliers launch failed with CUDA error {rc}")
+                raise RuntimeError(f"lorenzo_encode launch failed with CUDA error {rc}")
+            LAUNCHES["lorenzo_encode"] += 1
+            total = int(count)  # sizes the outputs: the one read to the host
+            if total <= cap:
+                break
+            cap = total  # the list overflowed: once more, at the exact total
+    idx, vals = idx[:total], vals[:total]
+    if total > 1:
+        idx, order = torch.sort(idx)
+        vals = vals[order]
     return codes, idx, vals

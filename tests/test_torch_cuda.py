@@ -94,6 +94,27 @@ def test_histogram_kernel_is_exact(cuda, n, offset):
     assert torch.equal(hist.histogram256(x), torch.bincount(x, minlength=256))
 
 
+def _hist_stream(kind, n, device):
+    g = torch.Generator(device=device).manual_seed(n)
+    if kind.startswith("const"):
+        return torch.full((n,), int(kind[5:]), dtype=torch.uint8, device=device)
+    d = torch.randint(0, 256, (n,), generator=g, device=device, dtype=torch.uint8)
+    if kind == "center90":
+        d[torch.rand(n, generator=g, device=device) < 0.9] = 128
+    return d
+
+
+@pytest.mark.parametrize("n", [0, 1, 15, 16, 17, 8191, 8193, 1_000_003, 512**3])
+@pytest.mark.parametrize("kind", ["const0", "const128", "const255", "uniform", "center90"])
+def test_histogram_kernel_streams_at_every_offset(cuda, kind, n):
+    """One byte value everywhere (every lane on one bin), uniform, and 90 %
+    the center code (counted in registers), at each of the 16 head offsets."""
+    d = _hist_stream(kind, n + 15, cuda)
+    for off in range(16):
+        x = d[off: off + n]
+        assert torch.equal(hist.histogram256(x), torch.bincount(x, minlength=256)), off
+
+
 @pytest.mark.parametrize("n", [0, 1, 31, 8191, 8192, 8193, 1_000_003])
 @pytest.mark.parametrize("offset", [0, 3])
 @pytest.mark.parametrize("block", [8192, 1024, 32])
@@ -131,6 +152,41 @@ def test_lorenzo_kernel_is_exact(cuda, shape, nd, twoeb):
     assert torch.equal(cc, codes.cpu()) and torch.equal(ci, idx.cpu()) and torch.equal(cv, vals.cpu())
     if twoeb > 1e-3:
         assert idx.numel() > 0
+
+
+LORENZO_EDGE_SHAPES = ([((5, y, z), 3) for y in (1, 7, 9) for z in (1, 31, 33, 127, 129, 513)]
+                       + [((1, 9, 129), 3), ((1, 7, 513), 3), ((700, 9, 33), 3), ((3, 40, 9, 129), 3),
+                          ((4, 33, 70), 2), ((2, 3, 600), 1)])
+
+
+@pytest.mark.parametrize("shape,nd", LORENZO_EDGE_SHAPES, ids=str)
+@pytest.mark.parametrize("twoeb", [0.02, 2e-6])
+def test_lorenzo_kernel_at_the_tile_edges(cuda, shape, nd, twoeb):
+    """Z around the 128-point warp, Y around the 8-row tile, X == 1 (runs
+    as a march along y), a 700-plane march and batched fields."""
+    test_lorenzo_kernel_is_exact(cuda, shape, nd, twoeb)
+
+
+def _lorenzo_case_field(kind, shape, device):
+    if kind == "all-outliers":  # a checkerboard of +-500: every delta is a multiple of 25000
+        ix = torch.stack(torch.meshgrid(*[torch.arange(s, device=device) for s in shape], indexing="ij")).sum(0)
+        return (ix % 2).float() * 1000.0 - 500.0
+    x = torch.zeros(shape, device=device)
+    x.view(-1)[-1] = 50.0  # a spike on the last point: its delta alone is an outlier
+    return x
+
+
+@pytest.mark.parametrize("kind,expect", [("all-outliers", 100 * 100 * 260), ("one-outlier", 1)])
+def test_lorenzo_kernel_all_and_one_outlier(cuda, kind, expect):
+    x = _lorenzo_case_field(kind, (100, 100, 260), cuda)
+    reset_launch_counts()
+    codes, idx, vals = lor.lorenzo_encode(x, 0.02, 3)
+    pc, po, pfull = plain_lorenzo.lorenzo_encode(x, 0.02, 3)
+    pidx = torch.nonzero(po.reshape(-1)).reshape(-1)
+    assert torch.equal(codes, pc) and torch.equal(idx, pidx) and torch.equal(vals, pfull.reshape(-1)[pidx])
+    assert idx.numel() == expect
+    # the first outlier list holds 1/64 of the points; more overflow it, and the kernel runs again
+    assert launch_counts()["lorenzo_encode"] == (2 if expect > lor.ops.outlier_capacity(x.numel()) else 1)
 
 
 def test_wrappers_check_their_inputs(cuda):

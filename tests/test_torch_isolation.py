@@ -18,7 +18,7 @@ from repro_torch.kernels import interp3d as interp
 from repro_torch.kernels import lorenzo3d as lor
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "interp_bench.py"]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "kernel_bench.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
