@@ -192,6 +192,27 @@ def lorenzo_case_field(kind: str, shape, device):
     return x
 
 
+# bounds of the quantization check: inside the kernel's fast division range
+# [2^-60, 2^60], at its ends and outside it
+QUANT_BOUNDS = (2e-3, 2e-6, 1.0, 3.7e5, 2.0**-60, 2.0**60, 1e-30, 1e30)
+
+
+def quantization_field(twoeb: float, g):
+    """A 1-D f32 field for the quantization x / 2eb: 2^24 random bit patterns
+    (every exponent, NaN replaced by 0), then 2^22 values (k + 1/2) * 2eb
+    next to a rounding tie and each of their two neighbours."""
+    import torch
+
+    dev = g.device
+    bits = torch.randint(-2**31, 2**31, (1 << 24,), generator=g, device=dev, dtype=torch.int64).to(torch.int32)
+    v = bits.view(torch.float32)
+    v = torch.where(torch.isnan(v), torch.zeros_like(v), v)
+    k = torch.randint(-2**24, 2**24, (1 << 22,), generator=g, device=dev).float()
+    ties = (k + 0.5) * torch.tensor(twoeb, dtype=torch.float32, device=dev)
+    inf = torch.full_like(ties, float("inf"))
+    return torch.cat([v, ties, torch.nextafter(ties, inf), torch.nextafter(ties, -inf)]).contiguous()
+
+
 def phase_kernels(device, seed: int) -> None:
     import torch
 
@@ -307,8 +328,12 @@ def phase_bits_lorenzo(device, g) -> None:
     for kind, expect in (("all-outliers", 100 * 100 * 260), ("one-outlier", 1)):
         got = lorenzo_check(lorenzo_case_field(kind, (100, 100, 260), device), 0.02, 3, kind)
         check(got == expect, f"lorenzo encode: {got} outliers in the {kind} field, not {expect}")
+    bounds = QUANT_BOUNDS
+    for twoeb in bounds:
+        lorenzo_check(quantization_field(twoeb, g), twoeb, 1, f"quantization at 2eb {twoeb}")
     say(f"lorenzo encode == plain (codes, ascending outlier indices, deltas) on {len(shapes)} shapes x 2 bounds "
-        f"({n_out} outliers in all), an all-outlier and a one-outlier field")
+        f"({n_out} outliers in all), an all-outlier and a one-outlier field, and on random float bit patterns "
+        f"and values next to rounding ties at 2eb in {bounds}")
 
 
 def _is_span(name: str) -> bool:

@@ -13,7 +13,8 @@
 //
 // Design:
 // - Each warp counts into its own copy of the 256 bins (8 KB per CTA), with
-//   plain shared atomics; the copies are summed once per CTA.
+//   plain shared atomics (one predicated red.shared per byte); the copies
+//   are summed once per CTA.
 // - The center code never reaches the bins: per 32-bit word an exact SWAR
 //   test marks the bytes equal to 128 (center_mask), a popcount adds them to
 //   a register, and only the other bytes take an atomic. Exact for any
@@ -45,13 +46,20 @@ __device__ __forceinline__ uint32_t center_mask(uint32_t w) {
   return ~(y | t | 0x7F7F7F7Fu);
 }
 
-__device__ __forceinline__ void count_word(unsigned* bins, uint32_t w, unsigned& center) {
+// Adds 1 to the shared-memory word at `addr` unless `skip` is nonzero: a
+// predicated red.shared, which ptxas turns into a warp-aggregated increment
+// (lanes on one address add once) behind a branch.
+__device__ __forceinline__ void add_unless(unsigned addr, uint32_t skip) {
+  asm volatile("{\n\t.reg .pred p;\n\tsetp.eq.u32 p, %1, 0;\n\t@p red.shared.add.u32 [%0], 1;\n\t}"
+               :: "r"(addr), "r"(skip) : "memory");
+}
+
+// `bins` is the shared-space address of the warp's 256 bins.
+__device__ __forceinline__ void count_word(unsigned bins, uint32_t w, unsigned& center) {
   const uint32_t m = center_mask(w);
   center += __popc(m);
 #pragma unroll
-  for (int b = 0; b < 4; ++b) {
-    if (!(m >> (8 * b + 7) & 1u)) atomicAdd(&bins[(w >> (8 * b)) & 0xFFu], 1u);
-  }
+  for (int b = 0; b < 4; ++b) add_unless(bins + 4 * __byte_perm(w, 0, 0x4440 + b), m & (0x80u << (8 * b)));
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -61,6 +69,7 @@ histogram256_kernel(const uint8_t* __restrict__ data, long long n, long long hea
   for (int i = threadIdx.x; i < kWarps * 256; i += kThreads) (&bins[0][0])[i] = 0;
   __syncthreads();
   unsigned* mine = bins[threadIdx.x >> 5];
+  const unsigned mine_s = (unsigned)__cvta_generic_to_shared(mine);
   unsigned center = 0;
   const uint4* vec = reinterpret_cast<const uint4*>(data + head);
   const long long stride = (long long)gridDim.x * kThreads;
@@ -74,10 +83,10 @@ histogram256_kernel(const uint8_t* __restrict__ data, long long n, long long hea
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       if (i + u * stride < nvec) {
-        count_word(mine, v[u].x, center);
-        count_word(mine, v[u].y, center);
-        count_word(mine, v[u].z, center);
-        count_word(mine, v[u].w, center);
+        count_word(mine_s, v[u].x, center);
+        count_word(mine_s, v[u].y, center);
+        count_word(mine_s, v[u].z, center);
+        count_word(mine_s, v[u].w, center);
       }
     }
   }

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import numpy as np
 import torch
@@ -33,7 +34,7 @@ MARCH = 32    # planes of x each CTA takes
 def _lib():
     lib = library("lorenzo3d")
     vp, i64, i32, f = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
-    lib.lorenzo_encode.argtypes = [vp, i64, i64, i64, i64, i32, i64, f, vp, vp, vp, i64, vp, vp]
+    lib.lorenzo_encode.argtypes = [vp, i64, i64, i64, i64, i32, i64, f, vp, vp, vp, i64, vp, vp, vp]
     lib.lorenzo_encode.restype = ctypes.c_int
     return lib
 
@@ -48,7 +49,7 @@ def launch_plan(shape, ndim_spatial: int) -> tuple[int, int, int, int, int]:
     X, Y, Z = (1,) * (3 - ndim_spatial) + tuple(int(s) for s in shape[len(shape) - ndim_spatial:])
     if X == 1:
         X, Y = Y, 1
-    rows = int(np.prod(shape[: len(shape) - ndim_spatial], dtype=np.int64))
+    rows = math.prod(int(s) for s in shape[: len(shape) - ndim_spatial])
     return rows, X, Y, Z, TILE_Y if Y > 1 else 1
 
 
@@ -76,7 +77,7 @@ def lorenzo_encode(x: torch.Tensor, twoeb: float, ndim_spatial: int | None = Non
         raise ValueError("lorenzo_encode takes a contiguous tensor")
     rows, X, Y, Z, ty = launch_plan(tuple(x.shape), nd)
     tiles = -(-Z // (8 // ty * WARP_Z)) * -(-Y // ty) * -(-X // MARCH) * rows
-    if Z > 2**30 or tiles >= 2**31:
+    if Y > 2**30 or Z > 2**30 or tiles >= 2**31:
         raise ValueError(f"lorenzo_encode: field {tuple(x.shape)} exceeds the kernel's index range")
     dev = x.device
     n = int(x.numel())
@@ -85,6 +86,7 @@ def lorenzo_encode(x: torch.Tensor, twoeb: float, ndim_spatial: int | None = Non
         return codes, torch.empty(0, dtype=torch.int64, device=dev), torch.empty(0, dtype=torch.int32, device=dev)
     lib = _lib()
     count = torch.empty(1, dtype=torch.int64, device=dev)
+    total_h = torch.empty(1, dtype=torch.int64, pin_memory=True)  # the kernel's total, read once
     cap = outlier_capacity(n)
     with torch.cuda.device(dev):
         stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
@@ -93,11 +95,12 @@ def lorenzo_encode(x: torch.Tensor, twoeb: float, ndim_spatial: int | None = Non
             vals = torch.empty(cap, dtype=torch.int32, device=dev)
             rc = lib.lorenzo_encode(ctypes.c_void_p(x.data_ptr()), rows, X, Y, Z, ty, MARCH, float(np.float32(twoeb)),
                                     ctypes.c_void_p(codes.data_ptr()), ctypes.c_void_p(idx.data_ptr()),
-                                    ctypes.c_void_p(vals.data_ptr()), cap, ctypes.c_void_p(count.data_ptr()), stream)
+                                    ctypes.c_void_p(vals.data_ptr()), cap, ctypes.c_void_p(count.data_ptr()),
+                                    ctypes.c_void_p(total_h.data_ptr()), stream)
             if rc != 0:
                 raise RuntimeError(f"lorenzo_encode launch failed with CUDA error {rc}")
             LAUNCHES["lorenzo_encode"] += 1
-            total = int(count)  # sizes the outputs: the one read to the host
+            total = int(total_h[0])  # the C call waited for it: it sizes the outputs
             if total <= cap:
                 break
             cap = total  # the list overflowed: once more, at the exact total

@@ -189,6 +189,25 @@ def test_lorenzo_kernel_all_and_one_outlier(cuda, kind, expect):
     assert launch_counts()["lorenzo_encode"] == (2 if expect > lor.ops.outlier_capacity(x.numel()) else 1)
 
 
+@pytest.mark.parametrize("twoeb", [2e-3, 2e-6, 1.0, 3.7e5, 2.0**-60, 2.0**60, 1e-30, 1e30])
+def test_lorenzo_quantization_matches_ieee_division(cuda, twoeb):
+    """The kernel's division takes a fast path inside 2eb in [2^-60, 2^60]:
+    random float bit patterns over every exponent, and values next to the
+    rounding ties, against the plain version's IEEE division."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    v = torch.randint(-2**31, 2**31, (1 << 22,), generator=g, device=cuda, dtype=torch.int64)
+    v = v.to(torch.int32).view(torch.float32)
+    v = torch.where(torch.isnan(v), torch.zeros_like(v), v)
+    ties = (torch.randint(-2**24, 2**24, (1 << 20,), generator=g, device=cuda).float() + 0.5) * \
+        torch.tensor(twoeb, dtype=torch.float32, device=cuda)
+    inf = torch.full_like(ties, float("inf"))
+    x = torch.cat([v, ties, torch.nextafter(ties, inf), torch.nextafter(ties, -inf)])
+    codes, idx, vals = lor.lorenzo_encode(x, twoeb, 1)
+    pc, po, pfull = plain_lorenzo.lorenzo_encode(x, twoeb, 1)
+    pidx = torch.nonzero(po).reshape(-1)
+    assert torch.equal(codes, pc) and torch.equal(idx, pidx) and torch.equal(vals, pfull[pidx])
+
+
 def test_wrappers_check_their_inputs(cuda):
     steps = _steps(3, 16, "cubic", "md")
     with pytest.raises(TypeError):
