@@ -9,16 +9,17 @@
 // What bounds it on the H100: memory, one read of the stream (n bytes).
 // What gets in the way is instruction issue and contention: quantization-
 // code streams are highly skewed (most bytes are the center code 128, on
-// both predictors), and lanes adding to one shared bin serialize.
+// both predictors), and lanes adding to one shared bin would serialize.
 //
 // Design:
-// - Each warp counts into its own copy of the 256 bins (8 KB per CTA), with
-//   plain shared atomics (one predicated red.shared per byte); the copies
-//   are summed once per CTA.
-// - The center code never reaches the bins: per 32-bit word an exact SWAR
-//   test marks the bytes equal to 128 (center_mask), a popcount adds them to
-//   a register, and only the other bytes take an atomic. Exact for any
-//   input; faster for the streams the compressor makes.
+// - Each warp counts into its own copy of the 256 bins (8 KB per CTA); the
+//   copies are summed once per CTA.
+// - Every byte is one shared atomicAdd of 1 on a 32-bit shared address:
+//   ptxas makes it a warp-aggregated increment (ATOMS.POPC.INC), so the
+//   lanes of a warp that hit one bin (the center code, or one value
+//   everywhere) add once, and no per-byte test or warp match is needed.
+//   Counting the center code in registers (an exact SWAR mask per word)
+//   and leaving it out of the atomics measured slower (PERF.md, PR 14).
 // - Every thread keeps kUnroll 16-B loads in flight before it counts them,
 //   and the grid is as many CTAs as are resident at once (the occupancy
 //   query), each striding over the stream.
@@ -33,33 +34,13 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kUnroll = 4;  // 16-B loads in flight per thread
-constexpr unsigned kCenter = 128;
 
-// The high bit of each byte of w that equals 0x80, and no other bit. t has
-// a zero byte exactly where w has 0x80; adding 0x7F to the low 7 bits of a
-// byte carries into its high bit unless they are all zero, and cannot carry
-// out of the byte, so the count is exact (unlike the one-word test
-// (v - 0x01010101) & ~v & 0x80808080, which only says whether one exists).
-__device__ __forceinline__ uint32_t center_mask(uint32_t w) {
-  const uint32_t t = w ^ 0x80808080u;
-  const uint32_t y = (t & 0x7F7F7F7Fu) + 0x7F7F7F7Fu;
-  return ~(y | t | 0x7F7F7F7Fu);
-}
-
-// Adds 1 to the shared-memory word at `addr` unless `skip` is nonzero: a
-// predicated red.shared, which ptxas turns into a warp-aggregated increment
-// (lanes on one address add once) behind a branch.
-__device__ __forceinline__ void add_unless(unsigned addr, uint32_t skip) {
-  asm volatile("{\n\t.reg .pred p;\n\tsetp.eq.u32 p, %1, 0;\n\t@p red.shared.add.u32 [%0], 1;\n\t}"
-               :: "r"(addr), "r"(skip) : "memory");
-}
-
-// `bins` is the shared-space address of the warp's 256 bins.
-__device__ __forceinline__ void count_word(unsigned bins, uint32_t w, unsigned& center) {
-  const uint32_t m = center_mask(w);
-  center += __popc(m);
+// Adds 1 to the bin of each byte of w; `bins` is the shared-space address
+// of the warp's 256 bins.
+__device__ __forceinline__ void count_word(unsigned bins, uint32_t w) {
+  unsigned* b0 = reinterpret_cast<unsigned*>(__cvta_shared_to_generic(bins));
 #pragma unroll
-  for (int b = 0; b < 4; ++b) add_unless(bins + 4 * __byte_perm(w, 0, 0x4440 + b), m & (0x80u << (8 * b)));
+  for (int b = 0; b < 4; ++b) atomicAdd(b0 + __byte_perm(w, 0, 0x4440 + b), 1u);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -70,7 +51,6 @@ histogram256_kernel(const uint8_t* __restrict__ data, long long n, long long hea
   __syncthreads();
   unsigned* mine = bins[threadIdx.x >> 5];
   const unsigned mine_s = (unsigned)__cvta_generic_to_shared(mine);
-  unsigned center = 0;
   const uint4* vec = reinterpret_cast<const uint4*>(data + head);
   const long long stride = (long long)gridDim.x * kThreads;
   for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x; i < nvec; i += kUnroll * stride) {
@@ -83,10 +63,10 @@ histogram256_kernel(const uint8_t* __restrict__ data, long long n, long long hea
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       if (i + u * stride < nvec) {
-        count_word(mine_s, v[u].x, center);
-        count_word(mine_s, v[u].y, center);
-        count_word(mine_s, v[u].z, center);
-        count_word(mine_s, v[u].w, center);
+        count_word(mine_s, v[u].x);
+        count_word(mine_s, v[u].y);
+        count_word(mine_s, v[u].z);
+        count_word(mine_s, v[u].w);
       }
     }
   }
@@ -95,8 +75,6 @@ histogram256_kernel(const uint8_t* __restrict__ data, long long n, long long hea
     if (threadIdx.x < head) atomicAdd(&mine[data[threadIdx.x]], 1u);
     if (threadIdx.x < n - tail0) atomicAdd(&mine[data[tail0 + threadIdx.x]], 1u);
   }
-  center = __reduce_add_sync(0xFFFFFFFFu, center);
-  if ((threadIdx.x & 31) == 0 && center) atomicAdd(&mine[kCenter], center);
   __syncthreads();
   for (int b = threadIdx.x; b < 256; b += kThreads) {
     unsigned long long sum = 0;

@@ -15,9 +15,7 @@ again and refilled when it overflows, then sorted by flat index.
 
 histogram256 (csrc/histogram.cu): an unaligned head and a ragged tail of
 under 16 bytes each counted by CTA 0, the 16-B vectors in between strided
-over the grid's threads; per word, the center code 128 counted in a
-register through an exact SWAR mask, every other byte into its warp's
-copy of the bins.
+over the grid's threads, every byte into its warp's copy of the bins.
 """
 import itertools
 
@@ -199,14 +197,14 @@ def test_lorenzo_outlier_list_overflow_and_order(kind):
 
 
 def test_lorenzo_tile_walk_quantizes_each_point_about_once():
-    """At most (9/8)(129/128)(33/32) quantizations per point (every lane of
-    the halo row, the halo columns, the halo plane), down from 8."""
+    """At most (9/8)(1 + 1/WARP_Z)(33/32) quantizations per point (every lane
+    of the halo row, the halo columns, the halo plane), down from 8."""
     i, j, k = np.indices((64, 16, 256), dtype=np.float32)
     x = (np.sin(0.05 * i) + np.cos(0.1 * j) * np.sin(0.02 * k)).astype(np.float32)  # smooth: few outliers
     stats = {"quantized": 0, "launches": 0}
     emulate_lorenzo(x, 0.02, 3, stats)
     assert stats["launches"] == 1
-    assert 1.0 < stats["quantized"] / x.size <= 9 / 8 * 129 / 128 * 33 / 32
+    assert 1.0 < stats["quantized"] / x.size <= 9 / 8 * (1 + 1 / klor.WARP_Z) * 33 / 32
 
 
 @pytest.mark.parametrize("shape,nd,plan", [
@@ -220,76 +218,22 @@ def test_lorenzo_launch_plan(shape, nd, plan):
 # ---------------------------------------------------------------- histogram256
 
 
-def center_mask(w: np.ndarray) -> np.ndarray:
-    """csrc/histogram.cu's center_mask: the high bit of each byte equal to 0x80."""
-    w = w.astype(np.uint32)
-    t = w ^ np.uint32(0x80808080)
-    y = (t & np.uint32(0x7F7F7F7F)) + np.uint32(0x7F7F7F7F)
-    return ~(y | t | np.uint32(0x7F7F7F7F))
-
-
-def _popcount(m: np.ndarray) -> np.ndarray:
-    return np.unpackbits(m.astype("<u4").view(np.uint8).reshape(-1, 4), axis=1).sum(1)
-
-
-def _check_mask(words: np.ndarray) -> None:
-    m = center_mask(words)
-    by = words.astype("<u4").view(np.uint8).reshape(-1, 4)
-    expect = np.zeros(words.size, np.uint32)
-    for b in range(4):
-        expect |= (by[:, b] == 128).astype(np.uint32) << np.uint32(8 * b + 7)
-    assert np.array_equal(m, expect)
-    assert np.array_equal(_popcount(m), (by == 128).sum(1))
-
-
-def test_center_mask_on_every_word_of_edge_bytes():
-    vals = [0, 127, 128, 129, 255]
-    words = np.array([a | b << 8 | c << 16 | d << 24 for a, b, c, d in itertools.product(vals, repeat=4)],
-                     np.uint32)
-    assert words.size == 625
-    _check_mask(words)
-
-
-def test_center_mask_on_random_words():
-    rng = np.random.default_rng(1)
-    words = rng.integers(0, 2**32, 1 << 20, dtype=np.uint64).astype(np.uint32)
-    _check_mask(words)
-    # words that are mostly center bytes, as the compressor's streams are
-    by = np.where(rng.random((1 << 18, 4)) < 0.9, 128, rng.integers(0, 256, (1 << 18, 4))).astype(np.uint8)
-    _check_mask(by.view("<u4").reshape(-1))
-
-
-def test_the_one_word_zero_byte_test_is_no_count():
-    """(v - 0x01010101) & ~v & 0x80808080 says whether a zero byte exists;
-    it is no exact count (a borrow marks 0x01 above a zero byte)."""
-    t = np.array([0x00000100], np.uint32)  # bytes 00 01 00 00, low first: three zero bytes
-    approx = (t - np.uint32(0x01010101)) & ~t & np.uint32(0x80808080)
-    assert _popcount(approx)[0] == 4
-    assert _popcount(center_mask(t ^ np.uint32(0x80808080)))[0] == 3
-
-
 def emulate_histogram(data: np.ndarray, addr: int, grid: int = 5) -> np.ndarray:
     """The kernel over ``data`` placed at an address that is ``addr`` mod 16,
-    with ``grid`` CTAs of 256 threads: head, strided vectors, tail."""
+    with ``grid`` CTAs of 256 threads: the head up to the first 16-B
+    boundary and the tail after the last whole vector counted by threads
+    0-15 of CTA 0, vector j by thread j mod (grid * 256), every byte into
+    its thread's warp copy of the bins."""
     n = data.size
     head = min((16 - addr % 16) % 16, n)
     nvec = (n - head) // 16
     bins = np.zeros((grid, 8, 256), np.int64)
-    center = np.zeros(grid * 256, np.int64)
-    words = data[head: head + 16 * nvec].view("<u4").reshape(nvec, 4) if nvec else np.zeros((0, 4), np.uint32)
-    thread = np.arange(nvec) % (grid * 256)  # vector j goes to thread j mod (grid * 256)
-    for k in range(4):
-        w = words[:, k]
-        m = center_mask(w)
-        np.add.at(center, thread, _popcount(m))
-        for b in range(4):
-            take = (m >> np.uint32(8 * b + 7) & 1) == 0
-            np.add.at(bins, (thread[take] // 256, thread[take] % 256 // 32, (w[take] >> np.uint32(8 * b)) & 255), 1)
+    vecs = data[head: head + 16 * nvec].reshape(nvec, 16)
+    thread = np.repeat(np.arange(nvec) % (grid * 256), 16)
+    np.add.at(bins, (thread // 256, thread % 256 // 32, vecs.reshape(-1)), 1)
     edge = np.concatenate([data[:head], data[head + 16 * nvec:]])
-    assert edge.size < 32
-    np.add.at(bins[0, 0], edge, 1)  # threads 0-15 of CTA 0
-    for c in range(grid):
-        bins[c, :, 128] += center[c * 256: (c + 1) * 256].reshape(8, 32).sum(1)
+    assert head < 16 and edge.size - head < 16
+    np.add.at(bins[0, 0], edge, 1)
     return bins.sum((0, 1))
 
 
