@@ -340,6 +340,20 @@ def _is_span(name: str) -> bool:
     return name.startswith(("compress.", "decompress.")) or name.endswith((".encode", ".decode"))
 
 
+def _innermost_name(mangled: str) -> str:
+    """The last name of a mangled nested name (_ZN<len><name>...<len><name>E...),
+    so that a kernel in an anonymous namespace reads as its own name."""
+    i, name = 3, mangled
+    if not mangled.startswith("_ZN"):
+        return mangled
+    while i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        name, i = mangled[j: j + int(mangled[i:j])], j + int(mangled[i:j])
+    return name
+
+
 def ptxas_report(log: pathlib.Path) -> list[str]:
     """Per kernel of an ``nvcc -Xptxas -v`` log: its registers, shared
     memory and spills, one line each, the interp kernels named with their
@@ -355,9 +369,7 @@ def ptxas_report(log: pathlib.Path) -> list[str]:
         if m:
             t = (re.search(r"(interp_(?:en|de)code_kernel)ILi(\d)ELi(\d+)E", m.group(1))
                  or re.search(r"(lorenzo_kernel)ILi(\d)ELb([01])E", m.group(1)))
-            plain_name = re.search(r"\d+([A-Za-z]\w*_kernel)", m.group(1))
-            name = (f"{t.group(1)}<{t.group(2)},{t.group(3)}>" if t
-                    else plain_name.group(1) if plain_name else m.group(1))
+            name = f"{t.group(1)}<{t.group(2)},{t.group(3)}>" if t else _innermost_name(m.group(1))
         elif "spill" in line:
             spill = line.strip()
         elif "registers" in line:

@@ -12,8 +12,8 @@
 // both predictors), and lanes adding to one shared bin would serialize.
 //
 // Design:
-// - Each warp counts into its own copy of the 256 bins (8 KB per CTA); the
-//   copies are summed once per CTA.
+// - Each warp counts into its own copy of the 256 bins (16 KB per CTA of 16
+//   warps; 8 warps measured 4 % slower); the copies are summed once per CTA.
 // - Every byte is one shared atomicAdd of 1 on a 32-bit shared address:
 //   ptxas makes it a warp-aggregated increment (ATOMS.POPC.INC), so the
 //   lanes of a warp that hit one bin (the center code, or one value
@@ -31,7 +31,7 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 constexpr int kUnroll = 4;  // 16-B loads in flight per thread
 

@@ -218,19 +218,22 @@ def test_lorenzo_launch_plan(shape, nd, plan):
 # ---------------------------------------------------------------- histogram256
 
 
+HIST_THREADS = 512  # threads per CTA of csrc/histogram.cu
+
+
 def emulate_histogram(data: np.ndarray, addr: int, grid: int = 5) -> np.ndarray:
     """The kernel over ``data`` placed at an address that is ``addr`` mod 16,
-    with ``grid`` CTAs of 256 threads: the head up to the first 16-B
-    boundary and the tail after the last whole vector counted by threads
-    0-15 of CTA 0, vector j by thread j mod (grid * 256), every byte into
-    its thread's warp copy of the bins."""
+    with ``grid`` CTAs: the head up to the first 16-B boundary and the tail
+    after the last whole vector counted by threads 0-15 of CTA 0, vector j
+    by thread j mod (grid * HIST_THREADS), every byte into its thread's warp
+    copy of the bins."""
     n = data.size
     head = min((16 - addr % 16) % 16, n)
     nvec = (n - head) // 16
-    bins = np.zeros((grid, 8, 256), np.int64)
+    bins = np.zeros((grid, HIST_THREADS // 32, 256), np.int64)
     vecs = data[head: head + 16 * nvec].reshape(nvec, 16)
-    thread = np.repeat(np.arange(nvec) % (grid * 256), 16)
-    np.add.at(bins, (thread // 256, thread % 256 // 32, vecs.reshape(-1)), 1)
+    thread = np.repeat(np.arange(nvec) % (grid * HIST_THREADS), 16)
+    np.add.at(bins, (thread // HIST_THREADS, thread % HIST_THREADS // 32, vecs.reshape(-1)), 1)
     edge = np.concatenate([data[:head], data[head + 16 * nvec:]])
     assert head < 16 and edge.size - head < 16
     np.add.at(bins[0, 0], edge, 1)
