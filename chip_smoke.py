@@ -18,8 +18,10 @@ Phases, in order; any failure exits non-zero:
      bitshuffle and bitunshuffle (exact, and against the host bit1 stage)
      at ragged lengths up to 512^3; the Lorenzo encode (exact) on 1-D, 2-D,
      3-D and batched fields around its tile's edges (Z in {1, 31, 33, 127,
-     129, 513}, Y in {1, 7, 9}, X == 1, a 700-plane march) with forced
-     outliers and int32 saturation, an all-outlier and a one-outlier field;
+     129, 257, 513}, Y in {1, 7, 9}, X == 1, a 700-plane march) with forced
+     outliers and int32 saturation, an all-outlier and a one-outlier field,
+     and its quantization against IEEE division on random float bit
+     patterns and values next to rounding ties;
   4. four paths at full size on one Nyx-like lognormal 512^3 float32 field
      made on the card from --seed: the main path (the default spec: interp,
      autotune, pipeline cr), then the presets cusz_hi_tp (pipeline tp),
@@ -168,12 +170,12 @@ def interp_cases() -> list[tuple]:
 
 def lorenzo_shapes() -> list[tuple]:
     """(shape, spatial dims) of phase 3's Lorenzo fields: every Z in {1, 31,
-    33, 127, 129, 513} (around the 128-point warp) with every Y in {1, 7, 9}
-    (around the 8-row tile), X == 1, a long march, batched fields, 1-D and
-    2-D, beside the shapes of earlier checks."""
+    33, 127, 129, 257, 513} (around the 4-point lane groups and the 256-point
+    warp) with every Y in {1, 7, 9} (around the 8-row tile), X == 1, a long
+    march, batched fields, 1-D and 2-D, beside the shapes of earlier checks."""
     shapes = [((1_000_003,), 1), ((37, 45), 2), ((1000, 999), 2), ((33, 35, 70), 3), ((129, 257, 100), 3),
               ((3, 9, 31, 40), 3), ((4, 6, 65, 63), 2), ((7, 3001), 1), ((1, 1, 1), 3)]
-    shapes += [((5, y, z), 3) for y in (1, 7, 9) for z in (1, 31, 33, 127, 129, 513)]
+    shapes += [((5, y, z), 3) for y in (1, 7, 9) for z in (1, 31, 33, 127, 129, 257, 513)]
     shapes += [((1, 9, 129), 3), ((1, 7, 513), 3), ((700, 9, 33), 3), ((3, 40, 9, 129), 3), ((4, 33, 70), 2),
                ((2, 3, 600), 1)]
     return shapes
@@ -310,6 +312,7 @@ def phase_bits_lorenzo(device, g) -> None:
               torch.equal(bits.bitunshuffle(planes, block), bits.bitunshuffle_plain(planes, block)),
               f"bitshuffle kernels != plain at block {block}")
     say(f"bitshuffle / bitunshuffle == plain and == the host bit1 stage for n in {sizes}, aligned and unaligned")
+
     def lorenzo_check(x, twoeb, nd, label):
         codes, idx, vals = lor.lorenzo_encode(x, twoeb, nd)
         pc, po, pfull = plain_lorenzo.lorenzo_encode(x, twoeb, nd)
@@ -328,12 +331,11 @@ def phase_bits_lorenzo(device, g) -> None:
     for kind, expect in (("all-outliers", 100 * 100 * 260), ("one-outlier", 1)):
         got = lorenzo_check(lorenzo_case_field(kind, (100, 100, 260), device), 0.02, 3, kind)
         check(got == expect, f"lorenzo encode: {got} outliers in the {kind} field, not {expect}")
-    bounds = QUANT_BOUNDS
-    for twoeb in bounds:
+    for twoeb in QUANT_BOUNDS:
         lorenzo_check(quantization_field(twoeb, g), twoeb, 1, f"quantization at 2eb {twoeb}")
     say(f"lorenzo encode == plain (codes, ascending outlier indices, deltas) on {len(shapes)} shapes x 2 bounds "
         f"({n_out} outliers in all), an all-outlier and a one-outlier field, and on random float bit patterns "
-        f"and values next to rounding ties at 2eb in {bounds}")
+        f"and values next to rounding ties at 2eb in {QUANT_BOUNDS}")
 
 
 def _is_span(name: str) -> bool:

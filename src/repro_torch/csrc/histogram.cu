@@ -19,7 +19,7 @@
 //   lanes of a warp that hit one bin (the center code, or one value
 //   everywhere) add once, and no per-byte test or warp match is needed.
 //   Counting the center code in registers (an exact SWAR mask per word)
-//   and leaving it out of the atomics measured slower (PERF.md, PR 14).
+//   and leaving it out of the atomics measured slower (PERF.md).
 // - Every thread keeps kUnroll 16-B loads in flight before it counts them,
 //   and the grid is as many CTAs as are resident at once (the occupancy
 //   query), each striding over the stream.

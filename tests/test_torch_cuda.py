@@ -137,8 +137,17 @@ def _lorenzo_field(shape, seed, device):
     return x.contiguous()
 
 
+# Z around the 4-point lane groups and the 256-point warp, Y around the
+# 8-row tile, X == 1 (runs as a march along y), a 700-plane march and
+# batched fields
+LORENZO_EDGE_SHAPES = ([((5, y, z), 3) for y in (1, 7, 9) for z in (1, 31, 33, 127, 129, 257, 513)]
+                       + [((1, 9, 129), 3), ((1, 7, 513), 3), ((700, 9, 33), 3), ((3, 40, 9, 129), 3),
+                          ((4, 33, 70), 2), ((2, 3, 600), 1)])
+
+
 @pytest.mark.parametrize("shape,nd", [((1000,), 1), ((37, 45), 2), ((33, 35, 70), 3), ((3, 9, 31, 40), 3),
-                                      ((5, 129), 1), ((2, 3, 17, 33), 2), ((64, 64, 64), 3), ((1, 1, 1), 3)])
+                                      ((5, 129), 1), ((2, 3, 17, 33), 2), ((64, 64, 64), 3), ((1, 1, 1), 3)]
+                         + LORENZO_EDGE_SHAPES)
 @pytest.mark.parametrize("twoeb", [0.02, 2e-6])
 def test_lorenzo_kernel_is_exact(cuda, shape, nd, twoeb):
     x = _lorenzo_field(shape, sum(shape), cuda)
@@ -152,19 +161,6 @@ def test_lorenzo_kernel_is_exact(cuda, shape, nd, twoeb):
     assert torch.equal(cc, codes.cpu()) and torch.equal(ci, idx.cpu()) and torch.equal(cv, vals.cpu())
     if twoeb > 1e-3:
         assert idx.numel() > 0
-
-
-LORENZO_EDGE_SHAPES = ([((5, y, z), 3) for y in (1, 7, 9) for z in (1, 31, 33, 127, 129, 513)]
-                       + [((1, 9, 129), 3), ((1, 7, 513), 3), ((700, 9, 33), 3), ((3, 40, 9, 129), 3),
-                          ((4, 33, 70), 2), ((2, 3, 600), 1)])
-
-
-@pytest.mark.parametrize("shape,nd", LORENZO_EDGE_SHAPES, ids=str)
-@pytest.mark.parametrize("twoeb", [0.02, 2e-6])
-def test_lorenzo_kernel_at_the_tile_edges(cuda, shape, nd, twoeb):
-    """Z around the 128-point warp, Y around the 8-row tile, X == 1 (runs
-    as a march along y), a 700-plane march and batched fields."""
-    test_lorenzo_kernel_is_exact(cuda, shape, nd, twoeb)
 
 
 def _lorenzo_case_field(kind, shape, device):
