@@ -128,6 +128,25 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def kernel_device_ms(fn, key: str, iters: int) -> float:
+    """Device time per call of ``fn`` of the kernels whose names hold ``key``,
+    over ``iters`` calls, from torch.profiler: the kernels alone, without
+    the wrapper's host work or its other launches (memsets, copies)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    t = [e.time_range.elapsed_us() / 1e3 for e in prof.events() if e.device_type == DeviceType.CUDA and key in e.name]
+    check(len(t) >= iters, f"the profiler saw {len(t)} launches of {key} in {iters} calls")
+    return sum(t) / iters
+
+
 INTERP_SPLINES = ("linear", "cubic", "natural-cubic")
 HIST_STREAMS = ("const0", "const128", "const255", "uniform", "center90")
 
@@ -567,7 +586,8 @@ def lorenzo_path_shapes(x, buf_fz: bytes, iters: int) -> dict:
     """The Lorenzo encode at the fz path's shapes: the field ``x`` under the
     bound of its container ``buf_fz``. The wrapper call (kernel, host read of
     the outlier count, sort) is checked against the plain version (codes,
-    ascending outlier indices, deltas) and timed with CUDA events."""
+    ascending outlier indices, deltas) and timed with CUDA events; the
+    kernel alone by the profiler."""
     import torch
 
     from repro_torch.core import lorenzo as plain_lorenzo
@@ -591,14 +611,17 @@ def lorenzo_path_shapes(x, buf_fz: bytes, iters: int) -> dict:
         return c, i, full.reshape(-1)[i]
 
     return {"shape": tuple(xb.shape), "points": int(xb.numel()), "n_outliers": int(idx.numel()), "err": err,
-            "ms": cuda_ms(lambda: lor.lorenzo_encode(xb, twoeb, nd), iters), "plain_ms": cuda_ms(plain_call, 3)}
+            "ms": cuda_ms(lambda: lor.lorenzo_encode(xb, twoeb, nd), iters),
+            "kernel_ms": kernel_device_ms(lambda: lor.lorenzo_encode(xb, twoeb, nd), "lorenzo", iters),
+            "plain_ms": cuda_ms(plain_call, 3)}
 
 
 def histogram_path_shapes(seq, g, iters: int) -> dict:
     """histogram256 at the main path's hf input ``seq`` (mostly the center
     code) and on a uniform random stream of its length: each checked against
-    torch.bincount and timed with CUDA events, beside the plain version and
-    torch.bincount itself on ``seq``."""
+    torch.bincount and timed with CUDA events (on ``seq`` also the kernel
+    alone, by the profiler), beside the plain version and torch.bincount
+    itself on ``seq``."""
     import torch
 
     from repro_torch.kernels import histogram as hist
@@ -611,6 +634,7 @@ def histogram_path_shapes(seq, g, iters: int) -> dict:
     out = {"n": int(seq.numel()), "err": err, "uniform_ms": cuda_ms(lambda: hist.histogram256(uni), iters)}
     del uni
     out.update(ms=cuda_ms(lambda: hist.histogram256(seq), iters),
+               kernel_ms=kernel_device_ms(lambda: hist.histogram256(seq), "histogram256", iters),
                plain_ms=cuda_ms(lambda: hist.histogram256_plain(seq), iters),
                library_ms=cuda_ms(lambda: torch.bincount(seq, minlength=256), iters))
     return out
@@ -762,9 +786,11 @@ def main() -> int:
     say(f"fz-path shapes: bit1 input {bs['n']} bytes ({bs['padded']} padded), Lorenzo field {lz['shape']} with "
         f"{lz['n_outliers']} outliers")
     say(f"histogram256 on a uniform random stream of {hs['n']} bytes: {hs['uniform_ms']:.4f} ms "
-        f"(on the main path's stream: {hs['ms']:.4f} ms)")
+        f"(on the main path's stream: {hs['ms']:.4f} ms, the kernel alone {hs['kernel_ms']:.4f} ms)")
+    say(f"lorenzo_encode: the wrapper call {lz['ms']:.4f} ms, the kernel alone {lz['kernel_ms']:.4f} ms")
     results["kernels"] = kernels
     results["histogram_uniform_ms"] = hs["uniform_ms"]
+    results["kernel_alone_ms"] = {"histogram256": hs["kernel_ms"], "lorenzo_encode": lz["kernel_ms"]}
     del im, blocks, ck, anchors, keys, vals, seq
 
     # 7. where the time goes

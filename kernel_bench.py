@@ -6,7 +6,8 @@
 
 Makes the 512^3 Nyx-like field of ``chip_smoke.py`` on the card from seed
 0 and runs ``chip_smoke.py``'s phase-6 code for the kernel: each is checked
-against its plain version, then timed with CUDA events over 20 launches.
+against its plain version, then timed with CUDA events over 20 launches
+(for lorenzo and histogram also the kernel alone, by the profiler).
 
 - ``interp``: the encode and decode kernels on the field's 17^3 blocks
   under the default spec's plan (``--splines`` and ``--schemes`` replace
