@@ -27,7 +27,7 @@ from ..build import library
 LAUNCHES = {"lorenzo_encode": 0}
 TILE_Y = 8    # rows of y in a tile where Y > 1, plus a halo row
 WARP_Z = 256  # points of z per warp, 8 per lane; a tile has 8 // ty warps along z
-MARCH = 64    # planes of x each CTA takes
+MARCH = 32    # planes of x each CTA takes
 
 
 @functools.lru_cache(maxsize=None)
