@@ -25,7 +25,7 @@ from ...core import lorenzo as _plain
 from ..build import library
 
 LAUNCHES = {"lorenzo_encode": 0}
-TILE_Y = 16    # rows of y in a tile where Y > 1, plus a halo row
+TILE_Y = 8    # rows of y in a tile where Y > 1, plus a halo row
 WARP_Z = 256  # points of z per warp, 8 per lane; a tile has 8 // ty warps along z
 MARCH = 32    # planes of x each CTA takes
 
@@ -76,7 +76,7 @@ def lorenzo_encode(x: torch.Tensor, twoeb: float, ndim_spatial: int | None = Non
     if not x.is_contiguous():
         raise ValueError("lorenzo_encode takes a contiguous tensor")
     rows, X, Y, Z, ty = launch_plan(tuple(x.shape), nd)
-    tiles = -(-Z // ((1 if ty > 1 else 8) * WARP_Z)) * -(-Y // ty) * -(-X // MARCH) * rows
+    tiles = -(-Z // (8 // ty * WARP_Z)) * -(-Y // ty) * -(-X // MARCH) * rows
     if Y > 2**30 or Z > 2**30 or tiles >= 2**31:
         raise ValueError(f"lorenzo_encode: field {tuple(x.shape)} exceeds the kernel's index range")
     dev = x.device
