@@ -33,7 +33,7 @@ namespace {
 
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
-constexpr int kUnroll = 8;  // 16-B loads in flight per thread
+constexpr int kUnroll = 4;  // 16-B loads in flight per thread
 
 // Adds 1 to the bin of each byte of w; `bins` is the shared-space address
 // of the warp's 256 bins.
