@@ -22,21 +22,31 @@ Phases, in order; any failure exits non-zero:
      outliers and int32 saturation, an all-outlier and a one-outlier field,
      and its quantization against IEEE division on random float bit
      patterns and values next to rounding ties;
-  4. four paths at full size on one Nyx-like lognormal 512^3 float32 field
+     then the planner (predictor="auto") on the card and on the CPU over the
+     same sampled blocks of the 512^3 field below: the same PredictorPlan,
+     candidate labels and scores (so the same trial bytes);
+  4. five paths at full size on one Nyx-like lognormal 512^3 float32 field
      made on the card from --seed: the main path (the default spec: interp,
      autotune, pipeline cr), then the presets cusz_hi_tp (pipeline tp),
-     fzgpu_like (Lorenzo + fz) and cusz_l (Lorenzo + hf); each compress()
-     then decompress(out="device"), with launch counts reset just before
-     and read just after, and each path's kernels checked as launched;
-  5. for the same four, the card's container against the port's CPU path
-     on a 96^3 field (the Lorenzo containers byte-equal);
+     fzgpu_like (Lorenzo + fz), cusz_l (Lorenzo + hf) and cusz_hi_autoplan
+     (the planner and the orchestrator); each compress() then
+     decompress(out="device"), with launch counts reset just before and
+     read just after, and each path's kernels checked as launched; then the
+     orchestrator's choice on the main path's code stream, on the card and
+     on the CPU: the same record;
+  5. for the same five, the card's container against the port's CPU path
+     on a 96^3 field (the Lorenzo containers byte-equal); then byte-equal
+     containers for cusz_hi_auto, cusz_hi_autoplan, cusz_hi_crz, cuszp2_like
+     and a field with NaN/+-Inf, and pw_rel and psnr_target holding their
+     bound and target (their byte equality reported);
   6. per-kernel times at the paths' shapes (CUDA events) beside the plain
      version, the byte/operation bound and, for the histogram,
      torch.bincount as a library yardstick; the histogram also on a uniform
      random stream of the main path's length;
   7. where the time goes: one more compress + decompress of the field on
      each path under torch.profiler, by tracing span (host wall and device
-     time) and by device kernel, with the device's idle share.
+     time) and by device kernel, with the device's idle share; the
+     cusz_hi_autoplan path twice more with a plan cache, a miss then a hit.
 Prints one JSON line of kernels, then, as the last line,
 {"ok": true, "device": {...}}. Without CUDA it exits non-zero and prints no result.
 
@@ -68,7 +78,11 @@ PATHS = {
     "cusz_hi_tp": ("cusz_hi_tp", ("interp_encode", "interp_decode", "bitshuffle")),
     "fzgpu_like": ("fzgpu_like", ("lorenzo_encode", "bitshuffle")),
     "cusz_l": ("cusz_l", ("lorenzo_encode", "histogram256")),
+    # the planner's trials launch interp_encode and histogram256, the orchestrator's tp/fz/fzh trials bitshuffle
+    "cusz_hi_autoplan": ("cusz_hi_autoplan", ("interp_encode", "interp_decode", "histogram256", "bitshuffle")),
 }
+# phase 5: presets and fields whose card container must equal the CPU path's byte for byte
+BYTE_EQUAL_96 = ("cusz_hi_auto", "cusz_hi_autoplan", "cusz_hi_crz", "cuszp2_like", "nonfinite")
 
 
 class SmokeFailure(AssertionError):
@@ -640,6 +654,119 @@ def histogram_path_shapes(seq, g, iters: int) -> dict:
     return out
 
 
+def phase_planner(x, device) -> dict:
+    """The planner on the card and on the CPU over the same sampled blocks of
+    ``x`` (rel eb 1e-3, default strides): the same plan, candidate labels and
+    scores, exactly (the codes are bit-equal and the histograms integers, so
+    the trial encodes' byte counts, which the scores hold, are equal too)."""
+    import torch
+
+    from repro_torch.core import blocks as blk
+    from repro_torch.core.autotune import autotune_plan, plan_sample_indices
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    padded = blk.pad_field_batch_t(x[None])
+    blocks = blk.gather_blocks_batch_t(padded)
+    nb = int(blocks.shape[0])
+    sample = blocks.index_select(0, torch.from_numpy(plan_sample_indices(nb)).to(device)).contiguous()
+    del blocks
+    twoeb = 2e-3 * (float(x.max()) - float(x.min()))
+    fshape = (1,) + tuple(int(s) for s in padded.shape[1:])
+    del padded
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    card = autotune_plan(sample, twoeb, field_shape=fshape, presampled_of=nb)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    launches = launch_counts()
+    t0 = time.perf_counter()
+    cpu = autotune_plan(sample.cpu(), twoeb, field_shape=fshape, presampled_of=nb)
+    cpu_s = time.perf_counter() - t0
+    check(card.to_header(include_candidates=True) == cpu.to_header(include_candidates=True),
+          f"planner: card plan {card} {card.candidates} != cpu plan {cpu} {cpu.candidates}")
+    check(launches["interp_encode"] > 0 and launches["histogram256"] > 0, f"planner launches: {launches}")
+    say(f"planner on {int(sample.shape[0])} of {nb} blocks: card == cpu: plan {card}, {len(card.candidates)} "
+        f"candidates with equal scores, est {card.est_bits_per_code:.6f} bits/code; card {card_s:.3f} s "
+        f"({launches['interp_encode']} interp_encode, {launches['histogram256']} histogram256 launches), "
+        f"cpu {cpu_s:.3f} s")
+    return {"plan": str(card), "candidates": [list(c) for c in card.candidates], "sampled_blocks": card.sampled_blocks,
+            "card_s": card_s, "cpu_s": cpu_s, "launches": launches}
+
+
+def phase_orchestrator(seq) -> dict:
+    """The orchestrator's choice on the code stream ``seq`` (a CUDA tensor)
+    on the card, on a CPU tensor and on a numpy array: the same record."""
+    from repro_torch.core.lossless import orchestrate
+
+    t0 = time.perf_counter()
+    best, rec = orchestrate.choose_pipeline(seq)
+    card_s = time.perf_counter() - t0
+    for host in (seq.cpu(), seq.cpu().numpy()):
+        hb, hrec = orchestrate.choose_pipeline(host)
+        check((hb, hrec) == (best, rec), f"orchestrator: card {best} {rec} != {type(host).__name__} {hb} {hrec}")
+    say(f"orchestrator on {int(seq.numel())} codes: card == cpu: {best}, trial_bytes {rec['trial_bytes']}, "
+        f"card {card_s:.3f} s")
+    return {"pipeline": best, "record": rec, "card_s": card_s}
+
+
+def nonfinite_field(x):
+    """``x`` (numpy) with NaN, +Inf, -Inf and a NaN payload sprinkled in."""
+    import numpy as np
+
+    y = x.copy()
+    y.reshape(-1)[::997] = np.float32(np.nan)
+    y.reshape(-1)[5::1999] = np.inf
+    y.reshape(-1)[7::2999] = -np.inf
+    y.view(np.uint32).reshape(-1)[11] = 0x7FC0BEEF
+    return y
+
+
+def phase_modes_96(xs, device) -> dict:
+    """On the 96^3 field: the presets and the NaN/Inf field byte-equal
+    between the card and the CPU path, and each decoding within its bound;
+    pw_rel and psnr_target holding their bound and target, with their byte
+    equality reported."""
+    import numpy as np
+
+    import repro_torch.core as core
+    from repro_torch.core import Compressor, CompressorSpec
+
+    out = {}
+    cases = {name: ((lambda dev, name=name: getattr(core, name)(device=dev)), xs) for name in BYTE_EQUAL_96[:-1]}
+    cases["nonfinite"] = ((lambda dev: Compressor(device=dev)), nonfinite_field(xs))
+    cases["pw_rel"] = ((lambda dev: Compressor(CompressorSpec(eb_mode="pw_rel", eb=1e-2), device=dev)), xs)
+    cases["psnr_target"] = ((lambda dev: Compressor(CompressorSpec(psnr_target=60.0), device=dev)), xs)
+    for name, (make, field) in cases.items():
+        card = make(device)
+        bc, bh = card.compress(field), make("cpu").compress(field)
+        y = Compressor(device="cpu").decompress(bc)
+        fin = np.isfinite(field)
+        check(np.array_equal(y.view(np.uint32)[~fin], field.view(np.uint32)[~fin]), f"96^3 {name}: non-finite points")
+        xf, yf = field[fin].astype(np.float64), y[fin].astype(np.float64)
+        if name == "pw_rel":
+            nz = xf != 0
+            err = float((np.abs(yf[nz] - xf[nz]) / np.abs(xf[nz])).max()) / 1e-2
+            check(err <= 1 + SLACK, f"96^3 pw_rel: max relative err / eb {err}")
+            metric = f"max rel err/eb {err:.7f}"
+        elif name == "psnr_target":
+            p = 10 * np.log10((xf.max() - xf.min()) ** 2 / float(np.mean((yf - xf) ** 2)))
+            check(p >= 60.0, f"96^3 psnr_target: {p:.3f} dB < 60")
+            err, metric = p, f"PSNR {p:.3f} dB (target 60)"
+        else:
+            info = Compressor.inspect(bc)
+            eb = (info.get("inner") or info)["eb_abs"]
+            err = float(np.abs(yf - xf).max()) / eb
+            check(err <= 1 + SLACK, f"96^3 {name}: max err/eb {err}")
+            check(bc == bh, f"96^3 {name}: card and cpu containers differ")
+            metric = f"max err/eb {err:.7f}"
+        tel = card.last_telemetry
+        say(f"96^3 {name}: containers equal {bc == bh}, {len(bc)} bytes, {metric}, pipeline {tel.get('pipeline')}, "
+            f"host stages {tel.get('host_stages', [])}")
+        out[name] = {"bytes_equal": bc == bh, "bytes": len(bc), "metric": err, "pipeline": tel.get("pipeline")}
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -671,6 +798,12 @@ def main() -> int:
     say(smi)
     say(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind}")
     results["card"] = smi
+    try:  # the zstd stage's codec on this machine: zstandard, else zlib
+        import zstandard
+        results["zstd_codec"] = f"zstandard {zstandard.__version__}"
+    except ImportError:
+        results["zstd_codec"] = "zlib (zstandard does not import)"
+    say(f"zstd stage codec: {results['zstd_codec']}")
 
     # 2. build
     t0 = time.perf_counter()
@@ -680,12 +813,13 @@ def main() -> int:
         for line in ptxas_report(build_dir() / f"{name}.log"):
             say(f"  ptxas {name}: {line}")
 
-    # 3. kernels vs plain
+    # 3. kernels vs plain, then the planner on the card against the CPU
     phase_kernels(device, args.seed)
-
-    # 4. the paths at full size
     x = nyx_like(args.side, args.seed, device)
     torch.cuda.synchronize()
+    results["planner"] = phase_planner(x, device)
+
+    # 4. the paths at full size
     comps, bufs = {}, {}
     results["paths"] = {}
     for name, (preset, kernels) in PATHS.items():
@@ -695,6 +829,12 @@ def main() -> int:
     results["main"] = results["paths"]["main"]
     header, sections = _sections_unpack(bufs["main"])
     say(f"main header: splines {header['splines']} schemes {header['schemes']} n_outliers {header['n_outliers']}")
+    ap, ap_header = comps["cusz_hi_autoplan"].last_plan, _sections_unpack(bufs["cusz_hi_autoplan"])[0]
+    say(f"cusz_hi_autoplan: plan {ap} ({len(ap.candidates)} candidates, est {ap.est_bits_per_code:.6f} bits/code), "
+        f"pipeline {ap_header['pipeline']}, trial_bytes {ap_header['pchoice']['trial_bytes']}, "
+        f"launches {results['paths']['cusz_hi_autoplan']['launches']}")
+    results["autoplan"] = {"plan": str(ap), "candidates": len(ap.candidates), "pchoice": ap_header["pchoice"]}
+    results["orchestrator"] = phase_orchestrator(pipelines.decode(sections[0], device=device))
 
     # 5. card path vs the port's CPU path
     xs = smooth_big()
@@ -722,6 +862,7 @@ def main() -> int:
         say(f"96^3 {name} card vs cpu: codes agree {agree:.7f}, containers equal {bc == bh}, "
             f"card container on cpu err/eb {r96:.7f}")
         results["card_vs_cpu"][name] = {"agree": agree, "bytes_equal": bc == bh, "err_over_eb": r96}
+    results["modes_96"] = phase_modes_96(xs, device)
 
     # 6. kernel times at the paths' shapes
     im = interp_main_shapes(x, header, iters=10)
@@ -793,8 +934,17 @@ def main() -> int:
     results["kernel_alone_ms"] = {"histogram256": hs["kernel_ms"], "lorenzo_encode": lz["kernel_ms"]}
     del im, blocks, ck, anchors, keys, vals, seq
 
+    for k in kernels:
+        k["launches_by_path"] = {name: launches[name][k["name"]] for name in PATHS}
+
     # 7. where the time goes
     results["profile"] = {name: phase_profile(comps[name], x, name) for name in PATHS}
+    cache = core.PlanCache()
+    for label in ("cusz_hi_autoplan, plan cache miss", "cusz_hi_autoplan, plan cache hit"):
+        comp = Compressor(CompressorSpec(predictor="auto", pipeline="auto"), plan_cache=cache)
+        results["profile"][label] = phase_profile(comp, x, label)
+    check(cache.hits == 1 and cache.misses == 1, f"plan cache: {cache.stats()}")
+    say(f"plan cache after the two profiled runs: {cache.stats()}")
     if args.out:
         out = pathlib.Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)

@@ -24,22 +24,25 @@ stream without per-chunk offsets (containers written before the offset
 table existed) decodes on the host, recorded as
 ``last_telemetry["hf_decode"] == "host-legacy"``.
 
-Ported so far: ``predictor="interp"`` and ``"lorenzo"``, ``eb_mode`` rel
-or abs, fixed pipelines of ported stages (cr, tp, fz, fzh, hf, lvl, none),
-``verify`` off/sample/full, containers v1/v2, and the presets
-``cusz_hi_cr``, ``cusz_hi_tp``, ``cusz_l``, ``cusz_i`` and ``fzgpu_like``.
-Other spec values parse and round-trip as strings and raise
-:class:`~repro_torch.core.errors.NotPortedError` when used, as do
-non-finite input and v3 containers.
+Ported: ``predictor`` interp, auto (the per-level planner,
+repro_torch.core.autotune.autotune_plan), lorenzo and offset1d;
+``eb_mode`` rel, abs and pw_rel; ``psnr_target``; every registered
+pipeline and ``pipeline="auto"`` (the orchestrator,
+repro_torch.core.lossless.orchestrate); NaN/Inf ingest (the nfsafe and
+nonfinite containers); an optional shared plan cache
+(repro_torch.core.plancache); ``verify`` off/sample/full; every preset of
+the JAX package; containers v2 written, v1 and v2 read. v3 containers
+(chunked frames) raise :class:`~repro_torch.core.errors.NotPortedError`.
 
-Tracing: each stage of the main path runs inside a
-``torch.profiler.record_function`` span (``compress.blocks``,
-``compress.autotune``, ``compress.predict`` (also the Lorenzo encode),
-``compress.scatter_reorder``,
-``<stage>.encode``, ``compress.verify``, ``<stage>.decode``,
-``decompress.blocks``, ``decompress.predict`` (also the Lorenzo prefix
-sums), ``decompress.scatter``);
-a span records only while a profiler is active.
+Tracing: each stage runs inside a ``torch.profiler.record_function``
+span (``compress.blocks``, ``compress.plan_cache`` (the key and the
+lookup), ``compress.autotune`` or ``compress.plan`` (the planner),
+``compress.predict`` (also the Lorenzo and offset1d encodes),
+``compress.scatter_reorder``, ``compress.orchestrate`` (the pipeline
+choice: sample, stats and trial encodes), ``<stage>.encode``,
+``compress.verify``, ``<stage>.decode``, ``decompress.blocks``,
+``decompress.predict`` (also the Lorenzo and offset1d decodes),
+``decompress.scatter``); a span records only while a profiler is active.
 
 Error-bound contract: ||x - decompress(compress(x))||_inf <= eb_abs, with
 eb_abs = eb * value_range(x) in the paper's default "rel" mode.
@@ -50,6 +53,7 @@ import dataclasses
 import json
 import struct
 import time
+import zlib
 
 import numpy as np
 import torch
@@ -59,9 +63,12 @@ from ..kernels import interp3d as _interp
 from ..kernels import lorenzo3d as _lor
 from . import blocks as blk
 from . import lorenzo as lor
-from .autotune import DEFAULT_STRIDES, autotune, levels_for_stride
+from .autotune import (DEFAULT_STRIDES, PredictorPlan, autotune, autotune_plan, levels_for_stride, plan_signature,
+                       stats_bucket)
 from .errors import BoundViolationError, ContainerError, NotPortedError, SpecError
-from .lossless import pipelines
+from .lossless import orchestrate, pipelines
+from .lossless.engine import _packbits, _unpackbits
+from .lossless.flenc import fl_decode, fl_encode
 from .reorder import reorder_codes_batch, reorder_codes_batch_t, restore_codes_batch, restore_codes_batch_t
 from .serial import pack_obj, unpack_obj
 from .stencils import SPLINES, build_steps
@@ -141,7 +148,7 @@ def _spec_format_value(key: str, value) -> str:
 class CompressorSpec:
     eb: float = 1e-3
     eb_mode: str = "rel"                  # "rel": eb * value range (paper); "abs"
-    predictor: str = "interp"             # interp | lorenzo (ported) | auto | offset1d
+    predictor: str = "interp"             # interp | auto | lorenzo | offset1d
     pipeline: str = "cr"                  # a registered pipeline, or "auto"
     anchor_stride: int = 16               # 16 = cuSZ-Hi; 8 = cuSZ-I layout
     autotune: bool = True
@@ -158,13 +165,13 @@ class CompressorSpec:
     def __post_init__(self):
         if self.verify not in _VERIFY_MODES:
             raise ValueError(f"unknown verify mode {self.verify!r}; one of {_VERIFY_MODES}")
-        if self.pipeline != "auto" and not pipelines.known_pipeline(self.pipeline):
+        if self.pipeline != "auto" and self.pipeline not in pipelines.PIPELINES:
             raise ValueError(f"unknown pipeline {self.pipeline!r}; registered pipelines: "
                              f"{', '.join(sorted(pipelines.PIPELINES))} (or 'auto')")
         if self.pipeline_candidates is not None and not self.pipeline_candidates:
             raise ValueError("pipeline_candidates must be None or a non-empty sequence of pipeline names")
         for nm in self.pipeline_candidates or ():
-            if not pipelines.known_pipeline(nm):
+            if nm not in pipelines.PIPELINES:
                 raise ValueError(f"unknown pipeline {nm!r} in pipeline_candidates")
         if self.predictor not in _PREDICTORS:
             raise ValueError(f"unknown predictor {self.predictor!r}; one of {_PREDICTORS}")
@@ -314,8 +321,19 @@ def _spatial_view(x: torch.Tensor):
     return x.reshape((batch,) + spatial), spatial
 
 
+def _median_f32(v: torch.Tensor) -> float:
+    """``np.median`` of a float32 vector: the middle value, or for an even
+    count the float32 mean of the two middle values (``torch.median`` would
+    give the lower one)."""
+    s = torch.sort(v).values
+    n = int(s.numel())
+    if n % 2:
+        return float(s[n // 2])
+    return float((s[n // 2 - 1] + s[n // 2]) / 2)
+
+
 class Compressor:
-    def __init__(self, spec: CompressorSpec | None = None, *, device=None, **kw):
+    def __init__(self, spec: CompressorSpec | None = None, *, device=None, plan_cache=None, **kw):
         self.spec = spec or CompressorSpec(**kw)
         dev = torch.device("cuda" if device is None else device)
         if dev.type == "cuda" and not torch.cuda.is_available():
@@ -323,9 +341,15 @@ class Compressor:
         if dev.type not in ("cuda", "cpu"):
             raise ValueError(f"Compressor runs on 'cuda' or 'cpu', got {dev}")
         self.device = dev
+        # optional repro_torch.core.plancache.PlanCache, shareable across
+        # compressors: a recurring field signature replays its tuning outcome
+        self.plan_cache = plan_cache
+        # the winning PredictorPlan of the last predictor="auto" compress()
+        self.last_plan = None
         # reset by compress() and decompress(): backend, engine, device,
         # fallbacks (always empty: nothing falls back), pipeline, verify,
-        # decode timing, and the routes the stream format chose (hf_decode)
+        # plan_cache ("hit"/"miss"), nonfinite, psnr_search, decode timing,
+        # and the routes the stream format chose (hf_decode, host_stages)
         self.last_telemetry = None
         self._hold = False  # a nested decompress (verify) adds to the caller's telemetry
 
@@ -343,18 +367,6 @@ class Compressor:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def _check_ported(self) -> None:
-        sp = self.spec
-        if sp.predictor not in ("interp", "lorenzo"):
-            raise NotPortedError(f"predictor={sp.predictor!r}")
-        if sp.eb_mode == "pw_rel":
-            raise NotPortedError("eb_mode='pw_rel'")
-        if sp.psnr_target is not None:
-            raise NotPortedError("psnr_target")
-        if sp.pipeline == "auto":
-            raise NotPortedError("pipeline='auto' (the orchestrator)")
-        pipelines.get_pipeline(sp.pipeline)
-
     def _abs_eb(self, x: torch.Tensor) -> float:
         if self.spec.eb_mode == "abs":
             return float(self.spec.eb)
@@ -362,27 +374,243 @@ class Compressor:
         rng = (float(x.max()) - float(x.min())) if x.numel() else 0.0
         return float(self.spec.eb) * rng
 
+    def _bitmap(self, raw: bytes, count: int) -> torch.Tensor:
+        return _unpackbits(torch.from_numpy(np.frombuffer(raw, np.uint8).copy()).to(self.device), count)
+
     # -------------------------------------------------------------- compress
     def compress(self, x) -> bytes:
         """Compress ``x`` (numpy array or tensor) to a v2 container under the
-        spec's bound; ``x`` moves to the compressor's device first."""
+        spec's bound; ``x`` moves to the compressor's device first. NaN and
+        +-Inf points are taken out first and restored bit for bit on decode
+        (the nfsafe container); a finite field pays one ``isfinite`` scan."""
         self.last_telemetry = None
         self._telemetry()
-        self._check_ported()
         xt = torch.as_tensor(x).to(device=self.device, dtype=torch.float32).contiguous()
-        if xt.numel() and not bool(torch.isfinite(xt).all()):
-            raise NotPortedError("non-finite input (NaN/Inf ingest)")
-        eb_abs = self._abs_eb(xt)
-        base_hdr = {"shape": list(xt.shape), "predictor": self.spec.predictor,
-                    "eb_abs": eb_abs, "anchor_stride": self.spec.anchor_stride}
-        if eb_abs == 0.0:  # constant (or empty) field: store the value verbatim
-            v = np.float32(xt.reshape(-1)[0].item() if xt.numel() else 0)
-            buf = _sections_pack(dict(base_hdr, mode="const"), [v.tobytes()])
-        elif self.spec.predictor == "lorenzo":
-            buf = self._compress_lorenzo(xt, eb_abs, base_hdr)
+        fin = torch.isfinite(xt)
+        if xt.numel() and not bool(fin.all()):
+            return self._compress_nonfinite(xt, fin)
+        return self._compress_finite(xt)
+
+    def _compress_finite(self, x: torch.Tensor) -> bytes:
+        sp = self.spec
+        if sp.eb_mode == "pw_rel":
+            return self._verify_repair(x, self._compress_pw_rel(x), bound=float(sp.eb), rel=True)
+        psnr_hdr = {}
+        if sp.psnr_target is not None:
+            eb_abs = self._psnr_target_eb(x)
+            psnr_hdr["psnr_target"] = float(sp.psnr_target)
         else:
-            buf = self._compress_interp(xt, eb_abs, base_hdr)
-        return self._verify_repair(xt, buf, bound=eb_abs)
+            eb_abs = self._abs_eb(x)
+        base_hdr = {"shape": list(x.shape), "predictor": sp.predictor, "eb_abs": eb_abs,
+                    "anchor_stride": sp.anchor_stride, **psnr_hdr}
+        if eb_abs == 0.0:  # constant (or empty) field: store the value verbatim
+            v = np.float32(x.reshape(-1)[0].item() if x.numel() else 0)
+            buf = _sections_pack(dict(base_hdr, mode="const"), [v.tobytes()])
+        elif sp.predictor == "lorenzo":
+            buf = self._compress_lorenzo(x, eb_abs, base_hdr)
+        elif sp.predictor == "offset1d":
+            buf = self._compress_offset1d(x, eb_abs, base_hdr)
+        else:
+            buf = self._compress_interp(x, eb_abs, base_hdr)
+        return self._verify_repair(x, buf, bound=eb_abs, rel=False)
+
+    # ---------------------------------------------------- non-finite ingest
+    def _compress_nonfinite(self, x: torch.Tensor, fin: torch.Tensor) -> bytes:
+        """The nfsafe wrapper: the NaN/+-Inf points as a bitmap and their
+        exact bit patterns (zlib), and the field with those points set to the
+        median of the finite ones as a complete inner container. A field
+        with no finite point is a nonfinite container of the patterns only."""
+        mask = ~fin.reshape(-1)
+        flat = x.reshape(-1)
+        n_bad = int(mask.sum())
+        pats = flat.view(torch.int32)[mask].cpu().numpy().view(np.uint32)
+        self._telemetry()["nonfinite"] = {"n": n_bad, "total": int(x.numel())}
+        if n_bad == x.numel():
+            header = {"shape": list(x.shape), "mode": "nonfinite", "n_nonfinite": n_bad}
+            return _sections_pack(header, [zlib.compress(pats.tobytes(), 6)])
+        fill = _median_f32(flat[~mask])
+        xf = torch.where(mask, torch.tensor(np.float32(fill), device=x.device), flat).reshape(x.shape)
+        ibuf = self._compress_finite(xf)
+        header = {"shape": list(x.shape), "mode": "nfsafe", "n_nonfinite": n_bad, "fill": fill}
+        return _sections_pack(header, [ibuf, _packbits(mask).cpu().numpy().tobytes(),
+                                       zlib.compress(pats.tobytes(), 6)])
+
+    def _decompress_nonfinite(self, sections, shape) -> torch.Tensor:
+        pats = np.frombuffer(zlib.decompress(sections[0]), np.int32).copy()
+        return torch.from_numpy(pats).to(self.device).view(torch.float32).reshape(shape)
+
+    def _decompress_nfsafe(self, sections, shape, tel: dict) -> torch.Tensor:
+        ihdr, isec = _sections_unpack(sections[0])
+        y = self._decompress_sections(ihdr, isec, tel).reshape(-1).to(torch.float32).clone()
+        mask = self._bitmap(sections[1], int(y.numel()))
+        pats = np.frombuffer(zlib.decompress(sections[2]), np.int32).copy()
+        y.view(torch.int32)[mask] = torch.from_numpy(pats).to(self.device)  # NaN payloads included
+        return y.reshape(shape)
+
+    # ------------------------------------------------------------- pw_rel
+    def _compress_pw_rel(self, x: torch.Tensor) -> bytes:
+        """Point-wise relative bound (SZ3's ``pw_rel``) in the log domain:
+        ``y = ln|x|`` is compressed under an absolute bound below
+        ``log1p(eb)``, with a margin for the float32 storage of ``y`` and the
+        rounding of ``exp(y')`` to float32; signs and exact zeros ride
+        bitmaps. The log is taken in float64 on the field's device."""
+        sp = self.spec
+        eb = float(sp.eb)
+        flat = x.reshape(-1)
+        zero = flat == 0.0
+        nz = ~zero
+        sign = torch.signbit(flat)  # over all points: -0.0 rides the zero bitmap and keeps its sign
+        mag = flat[nz].to(torch.float64).abs()
+        y64 = torch.log(mag)
+        y32 = y64.to(torch.float32)
+        cast = (y64 - y32.to(torch.float64)).abs()
+        cast_err = float(cast.max()) if y32.numel() else 0.0
+        slack = 1.2e-7  # f64 -> f32 rounding of exp(y') on the way back out
+        eb_log = (float(np.log1p(eb)) - cast_err - slack) * (1.0 - 2e-4)
+        if eb_log <= 0:
+            worst = float(mag[torch.argmax(cast)])
+            raise ValueError(f"eb={eb:g} is below the float32 pw_rel transform's resolution at |x|={worst:.6g} "
+                             f"(log-domain cast error {cast_err:.3g} eats the whole log1p(eb) budget); "
+                             "use a larger bound or eb_mode='abs'")
+        fill = float(y32.min()) if y32.numel() else 0.0  # zero slots: inert filler
+        y = torch.full_like(flat, fill)
+        y[nz] = y32
+        inner = Compressor(dataclasses.replace(sp, eb_mode="abs", eb=eb_log, verify="off"),
+                           device=self.device, plan_cache=self.plan_cache)
+        ibuf = inner.compress(y.reshape(x.shape))
+        itel = inner.last_telemetry or {}
+        tel = self._telemetry()
+        for k in ("pipeline", "plan_cache"):
+            if k in itel:
+                tel[k] = itel[k]
+        self.last_plan = inner.last_plan
+        header = {"shape": list(x.shape), "mode": "pw_rel", "predictor": sp.predictor, "eb_rel": eb,
+                  "eb_abs": float(eb_log), "n_zero": int(zero.sum())}
+        return _sections_pack(header, [ibuf, _packbits(sign).cpu().numpy().tobytes(),
+                                       _packbits(zero).cpu().numpy().tobytes()])
+
+    def _decompress_pw_rel(self, sections, shape, tel: dict) -> torch.Tensor:
+        ihdr, isec = _sections_unpack(sections[0])
+        y = self._decompress_sections(ihdr, isec, tel).reshape(-1)
+        sign = self._bitmap(sections[1], int(y.numel()))
+        zero = self._bitmap(sections[2], int(y.numel()))
+        out = torch.exp(y.to(torch.float64))
+        out[zero] = 0.0  # zero first, negate second: a signed zero slot decodes to -0.0
+        out[sign] = -out[sign]
+        return out.to(torch.float32).reshape(shape)
+
+    # -------------------------------------------------------- psnr target
+    @staticmethod
+    def _psnr_trial_field(x: torch.Tensor) -> torch.Tensor:
+        """The field itself when small, else a centred crop of at most 64 per axis."""
+        if x.numel() <= (1 << 20):
+            return x
+        return x[tuple(slice(None) if d <= 64 else slice(d // 2 - 32, d // 2 + 32) for d in x.shape)].contiguous()
+
+    def _psnr_target_eb(self, x: torch.Tensor) -> float:
+        """Bisect (in log space) the absolute eb whose reconstruction of the
+        trial field lands 0.5 dB above ``spec.psnr_target`` (range-normalized
+        MSE), each trial a compress + decompress of the port's own
+        Compressor on this device with the cheap fixed configuration."""
+        sp = self.spec
+        target = float(sp.psnr_target)
+        rng = (float(x.max()) - float(x.min())) if x.numel() else 0.0
+        if rng == 0.0:
+            return 0.0  # constant field: the const container, PSNR inf
+        trial = self._psnr_trial_field(x)
+        tspec = dataclasses.replace(sp, psnr_target=None, eb_mode="abs", eb=1.0,
+                                    predictor="interp" if sp.predictor == "auto" else sp.predictor,
+                                    pipeline="none", pipeline_candidates=None, autotune=False, verify="off")
+        mse_aim = rng * rng * 10.0 ** (-(target + 0.5) / 10.0)
+        trials = 0
+
+        def mse_at(eb_abs: float) -> float:
+            nonlocal trials
+            trials += 1
+            comp = Compressor(dataclasses.replace(tspec, eb=float(eb_abs)), device=self.device)
+            d = trial.to(torch.float64) - comp.decompress(comp.compress(trial), out="device").to(torch.float64)
+            return float((d * d).mean())
+
+        eb0 = min(float(np.sqrt(3.0 * mse_aim)), 0.25 * rng)  # uniform quantization: mse ~ eb^2 / 3
+        lo = hi = eb0
+        if mse_at(eb0) <= mse_aim:  # feasible: push eb up until it breaks
+            grown = False
+            for _ in range(8):
+                hi = lo * 4.0
+                if mse_at(hi) > mse_aim:
+                    grown = True
+                    break
+                lo = hi
+            if not grown:
+                hi = lo
+        else:  # infeasible at the model guess: tighten until it holds
+            for _ in range(12):
+                lo = lo / 4.0
+                if mse_at(lo) <= mse_aim:
+                    break
+            else:
+                raise ValueError(f"psnr_target={target:g} dB unreachable: trial mse {mse_at(lo):.3g} > "
+                                 f"target {mse_aim:.3g} even at eb={lo:.3g}")
+        while hi / lo > 1.02:  # log-bisect, lo on the feasible side
+            mid = float(np.sqrt(lo * hi))
+            if mse_at(mid) <= mse_aim:
+                lo = mid
+            else:
+                hi = mid
+        self._telemetry()["psnr_search"] = {"target_db": target, "eb_abs": float(lo), "trials": trials,
+                                            "trial_elems": int(trial.numel())}
+        return float(lo)
+
+    # ------------------------------------------------------------- interp
+    def _plan_cache_key(self, x: torch.Tensor):
+        """Plan-cache key of this field under this spec (the JAX package's),
+        or None when there is no cache or nothing to tune."""
+        sp = self.spec
+        if self.plan_cache is None or sp.predictor not in ("interp", "auto"):
+            return None
+        if not (sp.predictor == "auto" or sp.autotune or sp.pipeline == "auto"):
+            return None
+        extra = (sp.predictor, int(sp.anchor_stride), tuple(sp.plan_anchor_strides), bool(sp.autotune),
+                 bool(sp.reorder), sp.pipeline, tuple(sp.pipeline_candidates or ()), sp.psnr_target)
+        return plan_signature(tuple(x.shape), np.float32, sp.eb, sp.eb_mode, stats_bucket(x), extra=extra)
+
+    def _tune_interp(self, blocks: torch.Tensor, eb_abs: float, batch: int, padded_shapes):
+        """The (anchor stride, splines, schemes) the predictor will run; under
+        ``predictor="auto"`` the planner's, recorded on ``last_plan``."""
+        sp = self.spec
+        if sp.predictor == "auto":
+            with span("compress.plan"):
+                plan = autotune_plan(blocks, 2.0 * eb_abs, tuple(sp.plan_anchor_strides),
+                                     field_shape=(batch,) + tuple(padded_shapes),
+                                     trial_pipeline=sp.pipeline if sp.pipeline != "auto" else "cr", reorder=sp.reorder)
+            self.last_plan = plan
+            return plan.anchor_stride, plan.splines, plan.schemes
+        stride, levels = sp.anchor_stride, sp.levels
+        if sp.autotune:
+            with span("compress.autotune"):
+                splines, schemes = autotune(blocks, 2.0 * eb_abs, levels, stride)
+        else:
+            splines, schemes = tuple(sp.splines[: len(levels)]), tuple(sp.schemes[: len(levels)])
+        return stride, splines, schemes
+
+    def _encode_codes(self, seq, pipeline_override: str | None = None) -> tuple[bytes, dict]:
+        """Lossless-encode the code stream: (payload, header fields). Under
+        ``pipeline="auto"`` the orchestrator chooses and its record lands in
+        the header (``pchoice``); a plan-cache hit replays the recorded
+        pipeline instead (``pcached``). A failure raises: nothing falls back."""
+        sp = self.spec
+        tel = self._telemetry()
+        fixed = sp.pipeline if sp.pipeline != "auto" else pipeline_override
+        if fixed is not None:
+            hdr = {"pipeline": fixed}
+            if sp.pipeline == "auto":
+                hdr["pcached"] = True  # a plan-cache replay, not a spec-fixed pipeline
+            tel["pipeline"] = fixed
+            return pipelines.encode(seq, fixed, tel=tel), hdr
+        with span("compress.orchestrate"):
+            payload, record = orchestrate.encode_auto(seq, candidates=sp.pipeline_candidates, tel=tel)
+        tel["pipeline"] = record["pipeline"]
+        return payload, {"pipeline": record["pipeline"], "pchoice": record}
 
     def _compress_interp(self, x: torch.Tensor, eb_abs: float, base_hdr: dict) -> bytes:
         sp = self.spec
@@ -392,13 +620,23 @@ class Compressor:
             padded = blk.pad_field_batch_t(xb, blk.ANCHOR_STRIDE)
             padded_shapes = tuple(int(s) for s in padded.shape[1:])
             blocks = blk.gather_blocks_batch_t(padded, blk.ANCHOR_STRIDE)
-        stride, levels = sp.anchor_stride, sp.levels
-        if sp.autotune:
-            with span("compress.autotune"):
-                splines, schemes = autotune(blocks, 2.0 * eb_abs, levels, stride)
+        # plan cache: a recurring field signature replays the predictor plan
+        # and (pipeline="auto") the orchestrator's choice, skipping both tuners
+        with span("compress.plan_cache"):
+            ckey = self._plan_cache_key(x)
+            cached = self.plan_cache.get(ckey) if ckey is not None else None
+        pipe_override = None
+        if cached is not None:
+            self._telemetry()["plan_cache"] = "hit"
+            stride, splines, schemes = int(cached["stride"]), tuple(cached["splines"]), tuple(cached["schemes"])
+            if sp.predictor == "auto" and cached.get("plan") is not None:
+                self.last_plan = PredictorPlan.from_header(cached["plan"])
+            pipe_override = cached.get("pipeline")
         else:
-            splines, schemes = tuple(sp.splines[: len(levels)]), tuple(sp.schemes[: len(levels)])
-        steps = build_steps(ndim, blk.BLOCK, levels, splines, schemes)
+            if ckey is not None:
+                self._telemetry()["plan_cache"] = "miss"
+            stride, splines, schemes = self._tune_interp(blocks, eb_abs, batch, padded_shapes)
+        steps = build_steps(ndim, blk.BLOCK, levels_for_stride(stride), splines, schemes)
         with span("compress.predict"):
             codes_b, _ = _interp.compress_blocks(blocks, 2.0 * eb_abs, steps, stride, with_recon=False)
         del blocks
@@ -419,57 +657,77 @@ class Compressor:
             ov = padded_np.reshape(-1)[oi]
             anc = blk.anchor_grid_batch(padded_np, stride)
             seq = reorder_codes_batch(cgrid, stride, sp.reorder)
-        payload = pipelines.encode(seq, sp.pipeline)
-        self._telemetry()["pipeline"] = sp.pipeline
+        payload, penc = self._encode_codes(seq, pipe_override)
         header = dict(base_hdr, mode="interp", anchor_stride=int(stride), padded=list(padded_shapes),
                       batch=batch, splines=list(splines), schemes=list(schemes), reorder=bool(sp.reorder),
-                      n_outliers=int(oi.size), pipeline=sp.pipeline)
-        return _sections_pack(header, [payload, anc.astype(np.float32, copy=False).tobytes(),
-                                       oi.tobytes(), ov.astype(np.float32, copy=False).tobytes()])
+                      n_outliers=int(oi.size), **penc)
+        buf = _sections_pack(header, [payload, anc.astype(np.float32, copy=False).tobytes(),
+                                      oi.tobytes(), ov.astype(np.float32, copy=False).tobytes()])
+        if ckey is not None and cached is None:
+            plan = self.last_plan if sp.predictor == "auto" else None
+            with span("compress.plan_cache"):
+                self.plan_cache.put(ckey, {
+                    "stride": int(stride), "splines": tuple(splines), "schemes": tuple(schemes),
+                    "plan": None if plan is None else plan.to_header(),
+                    # only a pipeline the orchestrator chose needs a replay
+                    "pipeline": self._telemetry().get("pipeline") if sp.pipeline == "auto" else None})
+        return buf
 
     def _compress_lorenzo(self, x: torch.Tensor, eb_abs: float, base_hdr: dict) -> bytes:
-        sp = self.spec
         xb, spatial = _spatial_view(x)
         with span("compress.predict"):
             codes, oi, ov = _lor.lorenzo_encode(xb, 2.0 * eb_abs, len(spatial))
         seq = codes.reshape(-1)
-        payload = pipelines.encode(seq if self._device_engine else seq.cpu().numpy(), sp.pipeline)
-        self._telemetry()["pipeline"] = sp.pipeline
+        payload, penc = self._encode_codes(seq if self._device_engine else seq.cpu().numpy())
         header = dict(base_hdr, mode="lorenzo", batch=int(xb.shape[0]), spatial=list(spatial),
-                      n_outliers=int(oi.numel()), pipeline=sp.pipeline)
+                      n_outliers=int(oi.numel()), **penc)
         return _sections_pack(header, [payload, oi.cpu().numpy().astype(np.int64).tobytes(),
                                        ov.cpu().numpy().astype(np.int32).tobytes()])
 
+    def _compress_offset1d(self, x: torch.Tensor, eb_abs: float, base_hdr: dict) -> bytes:
+        with span("compress.predict"):
+            codes = lor.offset1d_encode(x, 2.0 * eb_abs)
+        payload, hdr = fl_encode(codes.cpu().numpy())
+        return _sections_pack(dict(base_hdr, mode="offset1d", fl=hdr), [payload])
+
     # ------------------------------------------------ bound verification
-    def _verify_check(self, x: torch.Tensor, buf: bytes):
-        """Decode ``buf`` on the compressor's device and return (worst
-        absolute error, points checked): every point, or under "sample"
-        the JAX package's ``np.linspace`` stride sample."""
+    def _verify_check(self, x: torch.Tensor, buf: bytes, *, rel: bool):
+        """Decode ``buf`` on the compressor's device and return (worst error,
+        points checked): absolute, or point-wise relative (``rel``; a zero
+        must decode to zero); every point, or under "sample" the JAX
+        package's ``np.linspace`` stride sample."""
         hold, self._hold = self._hold, True
         try:
             y = self.decompress(buf, out="device")
         finally:
             self._hold = hold
-        xf, yf = x.reshape(-1), y.reshape(-1)
+        xf, yf = x.reshape(-1).to(torch.float64), y.reshape(-1).to(torch.float64)
         n = int(xf.numel())
         if not n:
             return 0.0, 0
         if self.spec.verify == "sample" and n > _VERIFY_SAMPLE:
             idx = torch.from_numpy(np.linspace(0, n - 1, _VERIFY_SAMPLE).astype(np.int64)).to(self.device)
             xf, yf = xf[idx], yf[idx]
-        return float((yf.double() - xf.double()).abs().max()), int(xf.numel())
+        if rel:
+            nz = xf != 0.0
+            err = float(((yf[nz] - xf[nz]).abs() / xf[nz].abs()).max()) if bool(nz.any()) else 0.0
+            if bool((yf[~nz] != 0.0).any()):  # the exact-zero contract of pw_rel
+                err = float("inf")
+            return err, int(xf.numel())
+        return float((yf - xf).abs().max()), int(xf.numel())
 
-    def _verify_repair(self, x: torch.Tensor, buf: bytes, *, bound: float) -> bytes:
+    def _verify_repair(self, x: torch.Tensor, buf: bytes, *, bound: float, rel: bool) -> bytes:
         """Decode-and-check the fresh container; on a violation re-encode at
-        a halved absolute bound, checked against the ORIGINAL bound, up to
-        ``_REPAIR_ATTEMPTS`` times, then raise :class:`BoundViolationError`.
-        The outcome lands in ``last_telemetry["verify"]``."""
+        a halved bound (absolute, or pw_rel's relative one), checked against
+        the ORIGINAL bound, up to ``_REPAIR_ATTEMPTS`` times, then raise
+        :class:`BoundViolationError`. The outcome lands in
+        ``last_telemetry["verify"]``."""
         sp = self.spec
         if sp.verify == "off":
             return buf
         tel = self._telemetry()
         with span("compress.verify"):
-            max_err, checked = self._verify_check(x, buf)
+            max_err, checked = self._verify_check(x, buf, rel=rel)
         repairs, cur = 0, float(bound)
         limit = bound * (1.0 + _VERIFY_SLACK) + 1e-12
         while max_err > limit:
@@ -482,10 +740,17 @@ class Compressor:
                     max_err=max_err, bound=bound, repairs=repairs)
             repairs += 1
             cur *= _REPAIR_TIGHTEN
-            inner = Compressor(dataclasses.replace(sp, eb_mode="abs", eb=cur, psnr_target=None, verify="off"),
-                               device=self.device)
-            buf = inner.compress(x)
-            max_err, checked = self._verify_check(x, buf)
+            rspec = (dataclasses.replace(sp, eb=cur, verify="off") if rel else
+                     dataclasses.replace(sp, eb_mode="abs", eb=cur, psnr_target=None, verify="off"))
+            try:
+                buf = Compressor(rspec, device=self.device, plan_cache=self.plan_cache).compress(x)
+            except ValueError as e:  # the tightened bound fell off the codec's range
+                tel["verify"] = {"mode": sp.verify, "checked": checked, "max_err": max_err,
+                                 "bound": bound, "repairs": repairs}
+                raise BoundViolationError(
+                    f"bound violation (max err {max_err:.6g} > {bound:.6g}) and repair rung {repairs} "
+                    f"cannot encode at eb={cur:.6g}: {e}", max_err=max_err, bound=bound, repairs=repairs) from e
+            max_err, checked = self._verify_check(x, buf, rel=rel)
         tel["verify"] = {"mode": sp.verify, "checked": checked, "max_err": max_err,
                          "bound": bound, "repairs": repairs}
         return buf
@@ -540,8 +805,16 @@ class Compressor:
             return self._decompress_interp(header, sections, shape, tel)
         if mode == "lorenzo":
             return self._decompress_lorenzo(header, sections, shape, tel)
-        if mode in ("offset1d", "pw_rel", "nfsafe", "nonfinite"):
-            raise NotPortedError(f"container mode {mode!r}")
+        if mode == "offset1d":
+            codes = torch.from_numpy(fl_decode(sections[0], header["fl"])).to(self.device)
+            with span("decompress.predict"):
+                return lor.offset1d_decode(codes, 2.0 * float(header["eb_abs"])).reshape(shape)
+        if mode == "pw_rel":
+            return self._decompress_pw_rel(sections, shape, tel)
+        if mode == "nfsafe":
+            return self._decompress_nfsafe(sections, shape, tel)
+        if mode == "nonfinite":
+            return self._decompress_nonfinite(sections, shape)
         raise ContainerError(f"unknown container mode {mode!r}")
 
     def _decompress_interp(self, header, sections, shape, tel: dict) -> torch.Tensor:
@@ -605,8 +878,25 @@ class Compressor:
 
 # ------------------------------------------------------------------ presets
 # The JAX package's presets; ``device`` is the Compressor's (the card unless "cpu").
+def cusz_hi_auto(eb=1e-3, *, device=None, **kw) -> Compressor:
+    """Orchestrated mode: the per-field best-fit lossless pipeline (§5.2)."""
+    return Compressor(CompressorSpec(eb=eb, pipeline="auto", **kw), device=device)
+
+
+def cusz_hi_autoplan(eb=1e-3, *, device=None, **kw) -> Compressor:
+    """Fully synergistic mode: the per-level spline/scheme/stride planner
+    (§5.1.3) and the per-field best-fit lossless pipeline (§5.2)."""
+    return Compressor(CompressorSpec(eb=eb, predictor="auto", pipeline="auto", **kw), device=device)
+
+
 def cusz_hi_cr(eb=1e-3, *, device=None, **kw) -> Compressor:
     return Compressor(CompressorSpec(eb=eb, pipeline="cr", **kw), device=device)
+
+
+def cusz_hi_crz(eb=1e-3, *, device=None, **kw) -> Compressor:
+    """Beyond-paper mode: the CR pipeline with a zstd tail stage (zlib where
+    zstandard does not import)."""
+    return Compressor(CompressorSpec(eb=eb, pipeline="crz", **kw), device=device)
 
 
 def cusz_hi_tp(eb=1e-3, *, device=None, **kw) -> Compressor:
@@ -625,6 +915,11 @@ def cusz_i(eb=1e-3, *, device=None) -> Compressor:
         CompressorSpec(eb=eb, predictor="interp", pipeline="hf", anchor_stride=8, autotune=False,
                        splines=("cubic",) * 3, schemes=("1d",) * 3, reorder=False),
         device=device)
+
+
+def cuszp2_like(eb=1e-3, *, device=None) -> Compressor:
+    """cuSZp2-like baseline: 1-D offset prediction + fixed-length encoding."""
+    return Compressor(CompressorSpec(eb=eb, predictor="offset1d", pipeline="none"), device=device)
 
 
 def fzgpu_like(eb=1e-3, *, device=None) -> Compressor:

@@ -5,9 +5,8 @@ same type whichever package raised it. Container errors subclass
 :class:`ValueError`, the type older callers already handle.
 
 :class:`NotPortedError` marks a feature that the JAX package has and this
-port does not run yet (another predictor, pipeline or bound mode). It is
-raised at the point of use, so a spec that names such a feature still
-parses and round-trips as a string.
+port does not run yet (container v3, the chunked frames). It is raised at
+the point of use.
 """
 from __future__ import annotations
 

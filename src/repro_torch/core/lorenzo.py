@@ -60,3 +60,16 @@ def lorenzo_decode(codes: torch.Tensor, outlier_full: torch.Tensor, twoeb: float
     for ax in _spatial_axes(codes.dim(), ndim_spatial):
         q = torch.cumsum(q, dim=ax).to(torch.int32)  # cumsum gives int64; int32 wraps as JAX's does
     return q.to(torch.float32) * _twoeb(twoeb, codes.device)
+
+
+def offset1d_encode(x: torch.Tensor, twoeb: float) -> torch.Tensor:
+    """cuSZp2-style 1-D offset prediction on the flattened field: the
+    pre-quantized values' differences (int32, wrapping), first against 0."""
+    pq = prequantize(x.reshape(-1), twoeb).to(torch.int64)
+    return torch.diff(pq, prepend=pq.new_zeros(1)).to(torch.int32)
+
+
+def offset1d_decode(codes: torch.Tensor, twoeb: float) -> torch.Tensor:
+    """Inverse of :func:`offset1d_encode`: a wrapping int32 prefix sum times 2eb."""
+    q = torch.cumsum(codes.to(torch.int64), 0).to(torch.int32)
+    return q.to(torch.float32) * _twoeb(twoeb, codes.device)

@@ -1,18 +1,20 @@
 """Composable lossless pipelines over the stage registry (paper §5.2, Fig. 7).
 
-A pipeline is a named sequence of registered stages. The port runs the
-pipelines whose stages it has: CR mode ``hf -> rre4 -> tcms8 -> rze1``, TP
+A pipeline is a named sequence of registered stages: CR mode
+``hf -> rre4 -> tcms8 -> rze1``, ``crz`` (CR with a ``zstd`` tail), TP
 mode ``tcms1 -> bit1 -> rre1``, the baselines' ``fz`` (``bit1 -> rre1``)
 and ``fzh`` (``bit1 -> rre1 -> hf``), ``hf`` alone, ``lvl`` and ``none``.
-The JAX package's ``crz`` needs ``zstd``: it is known by name, so a spec
-that names it still parses, but using it raises
-:class:`~repro_torch.core.errors.NotPortedError`.
 
 Device path: when ``encode`` receives a torch tensor, every stage runs its
 torch twin on the tensor's device (repro_torch.core.lossless.engine) and
 the stream chains between stages as a tensor; the bytes land on the host
-once, in the packed stream. ``decode(buf, device=...)`` is the symmetric
-read path. Either path gives the host path's bytes.
+once, in the packed stream. A stage without a twin (``zstd``) takes the
+stream to the host for the rest of the pipeline, as in the JAX package;
+that hop is the format's, recorded in the caller's telemetry under
+``host_stages``. ``decode(buf, device=...)`` is the symmetric read path:
+host stages decode first on the host, and the stream goes up to the device
+once, for the first stage with a twin. Either path gives the host path's
+bytes.
 
 Stream format (LLP2, shared with the JAX package): ``b"LLP2"``, a stage
 count, then one record per stage — flags byte (bit0 = store-through for a
@@ -33,16 +35,11 @@ import numpy as np
 import torch
 from torch.profiler import record_function as span
 
-from ..errors import NotPortedError
 from .stages import get_stage
 
 _MAGIC = b"LLP2"
 
 PIPELINES: dict[str, tuple] = {}  # name -> stage-name tuple (live registry)
-# the JAX package's pipelines that need a stage this port does not have yet
-UNPORTED_PIPELINES = {
-    "crz": ("hf", "rre4", "tcms8", "rze1", "zstd"),
-}
 
 
 def register_pipeline(name: str, stages, *, overwrite: bool = False) -> tuple:
@@ -58,8 +55,6 @@ def register_pipeline(name: str, stages, *, overwrite: bool = False) -> tuple:
 
 
 def get_pipeline(name: str) -> tuple:
-    if name in UNPORTED_PIPELINES:
-        raise NotPortedError(f"pipeline {name!r} {UNPORTED_PIPELINES[name]}")
     try:
         return PIPELINES[name]
     except KeyError:
@@ -67,16 +62,12 @@ def get_pipeline(name: str) -> tuple:
                          f"registered pipelines: {', '.join(sorted(PIPELINES))} (or 'auto')") from None
 
 
-def known_pipeline(name: str) -> bool:
-    """A pipeline name the spec grammar accepts (ported or not)."""
-    return name in PIPELINES or name in UNPORTED_PIPELINES
-
-
 register_pipeline("cr", ("hf", "rre4", "tcms8", "rze1"))
 register_pipeline("tp", ("tcms1", "bit1", "rre1"))
 register_pipeline("hf", ("hf",))
 register_pipeline("none", ())
 register_pipeline("fz", ("bit1", "rre1"))
+register_pipeline("crz", ("hf", "rre4", "tcms8", "rze1", "zstd"))
 register_pipeline("fzh", ("bit1", "rre1", "hf"))
 register_pipeline("lvl", ("rre4", "hf", "rze1"))
 
@@ -85,17 +76,24 @@ def _resolve(pipeline) -> tuple:
     return get_pipeline(pipeline) if isinstance(pipeline, str) else tuple(pipeline)
 
 
-def encode(data, pipeline: str | tuple) -> bytes:
+def _host_stage(tel: dict | None, record: str) -> None:
+    if tel is not None and record not in tel.setdefault("host_stages", []):
+        tel["host_stages"].append(record)
+
+
+def encode(data, pipeline: str | tuple, *, tel: dict | None = None) -> bytes:
     """Encode a uint8 stream: a numpy array runs the host stages, a torch
-    tensor the stages' twins on its device."""
+    tensor the stages' twins on its device up to the first stage without
+    one, which takes the stream to the host (recorded in ``tel``)."""
     stages = _resolve(pipeline)
     device = isinstance(data, torch.Tensor)
     cur = data.reshape(-1).to(torch.uint8) if device else np.ascontiguousarray(data, np.uint8).reshape(-1)
     recs = []
     for name in stages:
         st = get_stage(name)
-        if device and st.encode_device is None:
-            raise ValueError(f"stage {name!r} has no device twin; pass a numpy array to encode on the host")
+        if device and st.encode_device is None:  # the stream drops to the host for good
+            cur, device = cur.cpu().numpy(), False
+            _host_stage(tel, f"{name}.encode")
         with span(f"{name}.encode"):
             if device:
                 nxt, hdr = st.encode_device(cur)
@@ -125,12 +123,18 @@ def _upload(buf, device) -> torch.Tensor:
     return torch.from_numpy(arr.copy()).to(device)
 
 
+def _host_bytes(cur):
+    return cur.cpu().numpy().tobytes() if isinstance(cur, torch.Tensor) else cur
+
+
 def decode(buf, *, device=None, tel: dict | None = None):
     """Decode a pipeline stream back to the uint8 code stream.
 
     ``device=None`` runs the host stages and returns a numpy array; a torch
-    device uploads the payload once and runs the stages' twins there,
-    returning a uint8 tensor. ``tel`` receives the routes the twins record.
+    device runs the stages' twins there and returns a uint8 tensor: the
+    stream goes up once, before the first stage with a twin, and a stage
+    without one decodes on the host (recorded in ``tel``, which also
+    receives the routes the twins record).
     """
     mv = buf if isinstance(buf, memoryview) else memoryview(buf)
     if mv[:4] == _MAGIC:
@@ -154,16 +158,18 @@ def decode(buf, *, device=None, tel: dict | None = None):
         off = 4 + mlen
         recs = [(name, hdr) for name, hdr in zip(meta["stages"], meta["headers"]) if not hdr.get("_skip")]
     cur = mv[off:]
-    if device is not None:
-        cur = _upload(cur, device)
-        for name, hdr in reversed(recs):
-            st = get_stage(name)
-            if st.decode_device is None:
-                raise ValueError(f"stage {name!r} has no device twin; decode with device=None")
+    for name, hdr in reversed(recs):
+        st = get_stage(name)
+        if device is not None and st.decode_device is not None:
+            if not isinstance(cur, torch.Tensor):
+                cur = _upload(cur, device)
             with span(f"{name}.decode"):
                 cur = st.decode_device(cur, hdr, tel)
-        return cur
-    for name, hdr in reversed(recs):
-        out = get_stage(name).decode(cur, hdr)
+            continue
+        if device is not None:
+            _host_stage(tel, f"{name}.decode")
+        out = st.decode(_host_bytes(cur), hdr)
         cur = out.tobytes() if isinstance(out, np.ndarray) else out
+    if device is not None:
+        return cur if isinstance(cur, torch.Tensor) else _upload(cur, device)
     return np.frombuffer(cur, np.uint8)

@@ -48,6 +48,15 @@ SCHEMES = ("1d", "md")
 LEVELS = (8, 4, 2, 1)  # anchor stride 16 -> 4-level hierarchy (paper §5.1.1)
 
 
+def levels_for_stride(stride: int) -> tuple[int, ...]:
+    """Interpolation levels of an anchor stride, largest first (16 -> 8, 4, 2, 1)."""
+    lv, s = [], stride // 2
+    while s >= 1:
+        lv.append(s)
+        s //= 2
+    return tuple(lv)
+
+
 def scheme_dims(scheme: str, ndim: int) -> tuple[int, ...] | None:
     """Sweep order of a sequential scheme, or None for the "md" scheme.
 

@@ -20,8 +20,7 @@ import numpy as np
 import torch
 
 from ...core import predictor as _plain
-from ...core.autotune import levels_for_stride
-from ...core.stencils import Step
+from ...core.stencils import Step, levels_for_stride
 from ..build import library
 
 LAUNCHES = {"interp_encode": 0, "interp_decode": 0}
@@ -153,7 +152,11 @@ def pack_steps(steps: tuple[Step, ...], anchor_every: int) -> dict:
     }
 
 
-@functools.lru_cache(maxsize=64)
+# One planner run (repro_torch.core.autotune.autotune_plan) at every anchor
+# stride, (16, 8, 4), runs at most 3 splines x 3 schemes x (4 + 3 + 2)
+# levels = 81 distinct step hierarchies; the cache holds them and the
+# compressor's others, so one compress never evicts its own tables.
+@functools.lru_cache(maxsize=128)
 def _device_tables(steps: tuple[Step, ...], anchor_every: int, device: str) -> dict:
     tb = dict(pack_steps(steps, anchor_every))
     words = _lib().interp_table_words(tb["ndim"], tb["every"])

@@ -281,3 +281,89 @@ def test_presets_write_the_same_container_on_card_and_cpu(cuda, preset):
     eb = Compressor.inspect(buf)["eb_abs"]
     assert float(np.abs(y.cpu().numpy() - x).max()) <= eb * (1 + 1e-4)
     assert np.array_equal(y.cpu().numpy(), Compressor(device="cpu").decompress(buf))
+
+
+@pytest.mark.parametrize("strides", [(16, 8), (8,), (16, 8, 4)])
+def test_planner_on_the_card_equals_the_cpu(cuda, strides):
+    """Codes bit-equal and integer histograms: the same plan, candidates and scores."""
+    from repro_torch.core import blocks as blk
+    from repro_torch.core.autotune import autotune_plan
+
+    x = torch.from_numpy(_smooth48())
+    padded = blk.pad_field_batch_t(x[None])
+    blocks = blk.gather_blocks_batch_t(padded)
+    fshape = (1,) + tuple(padded.shape[1:])
+    twoeb = 2e-3 * float(x.max() - x.min())
+    reset_launch_counts()
+    card = autotune_plan(blocks.to(cuda), twoeb, strides, field_shape=fshape)
+    counts = launch_counts()
+    assert counts["interp_encode"] == 9 * sum(len(levels_for_stride(s)) for s in strides), counts
+    assert counts["histogram256"] > counts["interp_encode"], counts
+    cpu = autotune_plan(blocks, twoeb, strides, field_shape=fshape)
+    assert card.to_header(include_candidates=True) == cpu.to_header(include_candidates=True)
+
+
+@pytest.mark.parametrize("kind", ["codes", "random", "runs"])
+def test_orchestrator_on_the_card_equals_the_cpu(cuda, kind):
+    from repro_torch.core.lossless import orchestrate
+
+    g = torch.Generator().manual_seed(7)
+    n = 300_001
+    if kind == "random":
+        data = torch.randint(0, 256, (n,), generator=g, dtype=torch.uint8)
+    elif kind == "runs":
+        data = torch.randint(0, 256, (n // 37 + 1,), generator=g, dtype=torch.uint8).repeat_interleave(37)[:n]
+    else:
+        data = (128 + torch.randn(n, generator=g) * 2).round().clamp(1, 255).to(torch.uint8)
+        data[torch.rand(n, generator=g) < 0.001] = 0
+    reset_launch_counts()
+    card = orchestrate.encode_auto(data.to(cuda))
+    assert launch_counts()["histogram256"] > 0
+    assert card == orchestrate.encode_auto(data) == orchestrate.encode_auto(data.numpy())
+
+
+def _nonfinite48():
+    x = _smooth48()
+    x.reshape(-1)[::97] = np.float32(np.nan)
+    x[1, 2, 3], x[4, 5, 6] = np.inf, -np.inf
+    return x
+
+
+MODE_CASES = {
+    "cusz_hi_auto": (lambda dev: T.cusz_hi_auto(device=dev), _smooth48),
+    "cusz_hi_autoplan": (lambda dev: T.cusz_hi_autoplan(device=dev), _smooth48),
+    "cusz_hi_crz": (lambda dev: T.cusz_hi_crz(device=dev), _smooth48),
+    "cuszp2_like": (lambda dev: T.cuszp2_like(device=dev), _smooth48),
+    "nonfinite": (lambda dev: Compressor(device=dev), _nonfinite48),
+    "autoplan_nonfinite": (lambda dev: T.cusz_hi_autoplan(device=dev), _nonfinite48),
+}
+
+
+@pytest.mark.parametrize("mode", list(MODE_CASES))
+def test_modes_write_the_same_container_on_card_and_cpu(cuda, mode):
+    make, field = MODE_CASES[mode]
+    x = field()
+    comp = make(None)
+    reset_launch_counts()
+    buf = comp.compress(x)
+    y = comp.decompress(buf, out="device").cpu().numpy()
+    if mode != "cuszp2_like":
+        assert launch_counts()["interp_encode"] > 0
+    assert buf == make("cpu").compress(x)
+    fin = np.isfinite(x)
+    assert np.array_equal(y.view(np.uint32)[~fin], x.view(np.uint32)[~fin])
+    info = Compressor.inspect(buf)
+    eb = (info.get("inner") or info)["eb_abs"]
+    assert float(np.abs(y[fin] - x[fin]).max()) <= eb * (1 + 1e-4)
+    assert np.array_equal(y.view(np.uint32), Compressor(device="cpu").decompress(buf).view(np.uint32))
+
+
+def test_pw_rel_and_psnr_target_hold_on_the_card(cuda):
+    x = _smooth48()
+    y = Compressor(T.CompressorSpec(eb_mode="pw_rel", eb=1e-2)).decompress(
+        Compressor(T.CompressorSpec(eb_mode="pw_rel", eb=1e-2)).compress(x))
+    nz = x != 0
+    assert float(np.max(np.abs(y[nz].astype(np.float64) - x[nz]) / np.abs(x[nz]))) <= 1e-2 * (1 + 1e-4)
+    comp = Compressor(T.CompressorSpec(psnr_target=60.0))
+    y = comp.decompress(comp.compress(x)).astype(np.float64)
+    assert 10 * np.log10(float(x.max() - x.min()) ** 2 / np.mean((y - x) ** 2)) >= 60.0
