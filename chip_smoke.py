@@ -46,7 +46,19 @@ Phases, in order; any failure exits non-zero:
   7. where the time goes: one more compress + decompress of the field on
      each path under torch.profiler, by tracing span (host wall and device
      time) and by device kernel, with the device's idle share; the
-     cusz_hi_autoplan path twice more with a plan cache, a miss then a hit.
+     cusz_hi_autoplan path twice more with a plan cache, a miss then a hit;
+     and the field as a v3 stream of 4 chunks (chunk_compress + decompress);
+  8. frames v3 and the data layer on the same field (default spec): the
+     4-chunk chunk_compress with its launch counts, each frame byte-equal to
+     Compressor().compress of its chunk, the decode within each chunk's
+     bound, frames=[2, 0]; shard_compress over [cuda:0] * 4 (four threads,
+     four streams) byte-equal to it; shard_decompress with 4 workers sharing
+     one Compressor bit-equal to the sequential decode; a bit flip, a
+     truncation and a torn tail, on plain and sync-marked streams, salvaged
+     under on_error="skip" and "fill"; the golden v3 fixtures decoded on the
+     card (equal to the CPU decode); two threads sharing one Compressor and
+     plan cache keeping their own plans; and repro_torch.io writing and
+     reading a two-variable dataset.
 Prints one JSON line of kernels, then, as the last line,
 {"ok": true, "device": {...}}. Without CUDA it exits non-zero and prints no result.
 
@@ -83,6 +95,13 @@ PATHS = {
 }
 # phase 5: presets and fields whose card container must equal the CPU path's byte for byte
 BYTE_EQUAL_96 = ("cusz_hi_auto", "cusz_hi_autoplan", "cusz_hi_crz", "cuszp2_like", "nonfinite")
+# phase 8: the field as a v3 stream of this many chunks, and the launches one
+# chunk_compress + decompress of it makes under the default spec: per chunk the
+# main path's 1 encode, 1 hf histogram and 2 decodes (verify's and the decode's)
+V3_CHUNKS = 4
+V3_LAUNCHES = {"interp_encode": 4, "interp_decode": 8, "histogram256": 4, "bitshuffle": 0, "bitunshuffle": 0,
+               "lorenzo_encode": 0}
+GOLDEN_V3 = ("golden_v3", "golden_v3_bitflip", "golden_v3_trunc", "golden_v3_torn")
 
 
 class SmokeFailure(AssertionError):
@@ -473,11 +492,15 @@ def interp_main_shapes(x, header: dict, iters: int) -> dict:
             "decode_ms": cuda_ms(lambda: interp.decompress_blocks(ck, *dec_in, twoeb, steps, stride), iters)}
 
 
-def phase_profile(comp, x, label: str) -> dict:
-    """Profile one compress + decompress; returns the breakdown: per tracing
-    span its host wall time and the device time of the kernels launched
-    inside it, per kernel name its device time, and the device's busy and
-    idle share of the wall time (one stream, so kernel times do not overlap)."""
+def phase_profile(comp, x, label: str, compress=None, decompress=None) -> dict:
+    """Profile one compress + decompress (``compress(x)`` and
+    ``decompress(buf)``, by default ``comp``'s, decoding to the device);
+    returns the breakdown: per tracing span its host wall time and the device
+    time of the kernels launched inside it (spans opened in worker threads
+    do not appear; their kernels do), per kernel name its device time, and
+    the device's busy and idle share of the wall time (busy: the union of the
+    kernels' intervals, so kernels that overlap on several streams count
+    once)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -485,12 +508,14 @@ def phase_profile(comp, x, label: str) -> dict:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        buf = comp.compress(x)
-        comp.decompress(buf, out="device")
+        buf = (compress or comp.compress)(x)
+        if decompress is None:
+            comp.decompress(buf, out="device")
+        else:
+            decompress(buf)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    spans, kernels = {}, {}
-    busy_ms = 0.0
+    spans, kernels, intervals = {}, {}, []
     for e in prof.events():
         if e.device_type == DeviceType.CPU and _is_span(e.name):
             r = spans.setdefault(e.name, {"span": e.name, "count": 0, "host_ms": 0.0, "device_ms": 0.0})
@@ -499,10 +524,15 @@ def phase_profile(comp, x, label: str) -> dict:
             r["device_ms"] += e.device_time_total / 1e3
         elif e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False) and not _is_span(e.name):
             ms = e.time_range.elapsed_us() / 1e3
-            busy_ms += ms
+            intervals.append((e.time_range.start, e.time_range.end))
             k = kernels.setdefault(e.name[:90], {"name": e.name[:90], "count": 0, "device_ms": 0.0})
             k["count"] += 1
             k["device_ms"] += ms
+    busy_us, reach = 0.0, float("-inf")
+    for start, end in sorted(intervals):
+        busy_us += max(0.0, end - max(start, reach))
+        reach = max(reach, end)
+    busy_ms = busy_us / 1e3
     spans = sorted(spans.values(), key=lambda r: -r["host_ms"])
     kernels = sorted(kernels.values(), key=lambda r: -r["device_ms"])[:15]
     idle = 1.0 - busy_ms / wall_ms
@@ -767,6 +797,321 @@ def phase_modes_96(xs, device) -> dict:
     return out
 
 
+def sync(device) -> None:
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def peak_reset(device) -> None:
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+
+
+def peak_gib(device) -> float:
+    import torch
+
+    return torch.cuda.max_memory_allocated(device) / 2**30 if device.type == "cuda" else 0.0
+
+
+def chunk_geometry(buf: bytes) -> list:
+    """(first row, rows, eb_abs) of each chunk of a v3 chunk stream (axis 0)."""
+    from repro_torch.core import Compressor
+
+    info = Compressor.inspect(buf)
+    check(info["axis"] == 0, f"chunk axis {info['axis']}")
+    out, lo = [], 0
+    for size, fr in zip(info["chunk_sizes"], info["frames"]):
+        out.append((lo, size, fr["eb_abs"]))
+        lo += size
+    return out
+
+
+def damaged_streams(buf: bytes, seed: int) -> dict:
+    """name -> (damaged copy of the v3 stream ``buf``, the chunks that survive):
+    a bit flipped inside frame 1's payload, the stream cut inside frame 2's
+    payload, and a torn tail (cut inside frame 3's payload, then 96 bytes of
+    seeded garbage)."""
+    import numpy as np
+
+    from repro_torch.core import frames
+
+    _, table = frames.frame_table(buf)
+    off1, size1, _ = table[1]
+    flip = bytearray(buf)
+    flip[off1 + size1 // 2] ^= 1 << 3
+    garbage = np.random.default_rng(seed).integers(0, 256, 96, dtype=np.uint8).tobytes()
+    return {"bitflip": (bytes(flip), [True, False, True, True]),
+            "trunc": (buf[: table[2][0] + 16], [True, True, False, False]),
+            "torn": (buf[: table[3][0] + 8] + garbage, [True, True, True, False])}
+
+
+def phase_salvage(clean, streams: dict, geometry, device) -> dict:
+    """Each damaged stream through decompress(on_error="skip" and "fill",
+    out="device"): the chunks_ok mask as expected, every intact chunk equal
+    to the clean decode ``clean``, the lost ones left out or zero."""
+    import torch
+
+    from repro_torch.core import Compressor
+
+    out = {}
+    for name, (buf, expect) in streams.items():
+        for mode in ("skip", "fill"):
+            comp = Compressor(device=device)
+            t0 = time.perf_counter()
+            y = comp.decompress(buf, on_error=mode, out="device")
+            sync(device)
+            dt = time.perf_counter() - t0
+            dmg = comp.last_damage
+            check(dmg is not None and dmg["chunks_ok"] == expect,
+                  f"salvage {name}/{mode}: chunks_ok {None if dmg is None else dmg['chunks_ok']} != {expect}")
+            row = 0
+            for (lo, size, _), ok in zip(geometry, expect):
+                if ok:
+                    check(torch.equal(y[row: row + size], clean[lo: lo + size]),
+                          f"salvage {name}/{mode}: intact chunk at row {lo} differs from the clean decode")
+                elif mode == "fill":
+                    check(bool((y[row: row + size] == 0).all()), f"salvage {name}/{mode}: lost chunk not filled")
+                row += size if ok or mode == "fill" else 0
+            check(row == int(y.shape[0]), f"salvage {name}/{mode}: {int(y.shape[0])} rows, expected {row}")
+            out[f"{name}/{mode}"] = {"chunks_ok": dmg["chunks_ok"], "summary": dmg["report"].summary(), "s": dt}
+        say(f"  salvage {name} ({len(buf)} bytes): chunks_ok {expect} under skip and fill; "
+            f"{out[name + '/skip']['summary']}")
+    return out
+
+
+def phase_golden_v3(device) -> dict:
+    """The committed golden v3 fixtures, intact and damaged, decoded on the
+    card: equal to the port's CPU decode of the same bytes, with the same
+    chunk mask, and within the bound of golden_field.npy."""
+    import numpy as np
+
+    from repro_torch.core import Compressor
+
+    data = ROOT / "tests" / "data"
+    x = np.load(data / "golden_field.npy").astype(np.float64)
+    eb = 1e-2 * float(x.max() - x.min())  # tests/data/gen_golden.py's spec
+    sizes = Compressor.inspect((data / "golden_v3.bin").read_bytes())["chunk_sizes"]
+    bounds = np.concatenate([[0], np.cumsum(sizes)])
+    out = {}
+    for name in GOLDEN_V3:
+        buf = (data / f"{name}.bin").read_bytes()
+        card, cpu = Compressor(device=device), Compressor(device="cpu")
+        yc, yh = card.decompress(buf, on_error="fill"), cpu.decompress(buf, on_error="fill")
+        mc = card.last_damage and card.last_damage["chunks_ok"]
+        mh = cpu.last_damage and cpu.last_damage["chunks_ok"]
+        check(np.array_equal(yc, yh) and mc == mh, f"golden {name}: card decode != cpu decode ({mc} vs {mh})")
+        mask = mc or [True] * len(sizes)
+        err = max(float(np.abs(yc[bounds[i]: bounds[i + 1]] - x[bounds[i]: bounds[i + 1]]).max())
+                  for i in range(len(sizes)) if mask[i]) / eb
+        check(err <= 1 + SLACK, f"golden {name}: max err/eb {err}")
+        say(f"  golden {name}: card == cpu, chunks_ok {mask}, max err/eb {err:.7f}")
+        out[name] = {"chunks_ok": mask, "err_over_eb": err}
+    return out
+
+
+def phase_threads(device) -> dict:
+    """Two threads share one Compressor and one PlanCache on the card and
+    compress two fields with predictor="auto" whose plans differ; the
+    interleaving is forced (both tune before either caches). Each thread's
+    last_plan, each cache entry and each container equal a single-threaded
+    run's."""
+    import threading
+
+    import numpy as np
+
+    from repro_torch.core import Compressor, CompressorSpec, PlanCache
+
+    side = 24
+    shape = (side,) * 3
+    white = np.random.default_rng(0).standard_normal(shape).astype(np.float32)
+    ks = np.meshgrid(*[np.fft.fftfreq(n) for n in shape[:-1]] + [np.fft.rfftfreq(shape[-1])], indexing="ij")
+    filt = (sum(k**2 for k in ks) + 1e-6) ** -1.0
+    filt.flat[0] = 0.0
+    f = np.fft.irfftn(np.fft.rfftn(white) * filt, s=shape, axes=(0, 1, 2)).astype(np.float32)
+    g = np.arange(side, dtype=np.float32)
+    fields = {"nyx": np.exp(2.0 * f / np.abs(f).max()).astype(np.float32),
+              "ramp": (g[:, None, None] + 2 * g[None, :, None] + 3 * g[None, None, :]).astype(np.float32)}
+    spec = CompressorSpec(predictor="auto")
+    alone = {}
+    for name, x in fields.items():
+        cache = PlanCache()
+        comp = Compressor(spec, device=device, plan_cache=cache)
+        buf = comp.compress(x)
+        (key,) = cache.keys()
+        alone[name] = (comp.last_plan, key, cache.peek(key), buf)
+    check(alone["nyx"][0] != alone["ramp"][0], f"threads: the two fields tune alike ({alone['nyx'][0]})")
+    cache = PlanCache()
+    comp = Compressor(spec, device=device, plan_cache=cache)
+    barrier = threading.Barrier(len(fields), timeout=120)
+    tune = comp._tune_interp
+
+    def tune_then_wait(*args, **kwargs):
+        out = tune(*args, **kwargs)
+        barrier.wait()  # both threads have tuned before either caches its plan
+        return out
+
+    comp._tune_interp = tune_then_wait
+    got, errors = {}, []
+
+    def run(name):
+        try:
+            buf = comp.compress(fields[name])
+            got[name] = (comp.last_plan, buf)
+        except Exception as e:  # reported after the join
+            errors.append(repr(e))
+            barrier.abort()
+
+    threads = [threading.Thread(target=run, args=(name,)) for name in fields]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    check(not any(t.is_alive() for t in threads) and not errors, f"threads: {errors}")
+    for name, (plan, key, entry, buf) in alone.items():
+        check(got[name][0] == plan, f"threads: {name}'s last_plan {got[name][0]} != {plan}")
+        check(cache.peek(key) == entry, f"threads: the cache entry of {name} is another field's")
+        check(got[name][1] == buf, f"threads: {name}'s container differs from the single-threaded one")
+    say(f"  threads: two threads on one Compressor and PlanCache kept their own plans: "
+        f"nyx {alone['nyx'][0]}, ramp {alone['ramp'][0]}")
+    return {name: str(alone[name][0]) for name in fields}
+
+
+def phase_io(x, spec_str: str, smi: str, device) -> dict:
+    """repro_torch.io on the card: the field in chunks along axis 0 (lossy,
+    ``spec_str``) and a small int32 variable (lossless) written to a
+    temporary file, then one chunk by random access and the whole dataset
+    read back; the field within each chunk's bound, the int32 exact."""
+    import tempfile
+
+    import numpy as np
+
+    import repro_torch.io as rio
+
+    xh = x.cpu().numpy()
+    n = xh.shape[0] // V3_CHUNKS
+    steps = np.arange(64 * 64, dtype=np.int32).reshape(64, 64)
+    ds = rio.Dataset.from_arrays({"density": xh, "steps": steps}, attrs={"source": "chip_smoke phase 8"})
+    mb = xh.nbytes / 1e6
+    with tempfile.TemporaryDirectory() as d:
+        path = pathlib.Path(d) / "phase8.cszh3"
+        t0 = time.perf_counter()
+        man = rio.write(ds, path, compression={"density": spec_str, None: "lossless"},
+                        chunks={"density": (n,) + xh.shape[1:]}, device=device)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        one = rio.read_variable(path, "density", chunks=1, device=device)
+        one_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = rio.read(path, device=device)
+        read_s = time.perf_counter() - t0
+    check(np.array_equal(back["steps"].data, steps), "io: the lossless int32 variable changed")
+    check(np.array_equal(back["density"].data[n: 2 * n], one), "io: read_variable chunk 1 != the full read's")
+    worst = 0.0
+    for i in range(V3_CHUNKS):
+        c = xh[i * n: (i + 1) * n].astype(np.float64)
+        eb = 1e-3 * (c.max() - c.min())
+        worst = max(worst, float(np.abs(back["density"].data[i * n: (i + 1) * n] - c).max()) / eb)
+    check(worst <= 1 + SLACK, f"io: max err/eb {worst}")
+    say(f"  io ({smi}): wrote {man['bytes_written']} bytes of {mb:.1f} MB in {write_s:.3f} s "
+        f"({mb / write_s:.1f} MB/s), read chunk 1 in {one_s:.3f} s ({mb / V3_CHUNKS / one_s:.1f} MB/s), "
+        f"read all in {read_s:.3f} s ({mb / read_s:.1f} MB/s), max err/eb {worst:.7f}")
+    return {"bytes": man["bytes_written"], "write_s": write_s, "write_mbps": mb / write_s, "read_chunk_s": one_s,
+            "read_chunk_mbps": mb / V3_CHUNKS / one_s, "read_s": read_s, "read_mbps": mb / read_s,
+            "err_over_eb": worst}
+
+
+def phase_v3(x, device, smi: str, seed: int) -> dict:
+    """Phase 8: frames v3 and the data layer on the field ``x``."""
+    import torch
+
+    from repro_torch.core import Compressor, chunk_compress, frames, shard_compress, shard_decompress
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    out = {}
+    sync(device)
+    peak_reset(device)
+    mb = x.numel() * 4 / 1e6
+    comp = Compressor(device=device)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    buf = chunk_compress(x, n_chunks=V3_CHUNKS, compressor=comp)
+    sync(device)
+    t_c = time.perf_counter() - t0
+    tel_c = comp.last_telemetry
+    t0 = time.perf_counter()
+    y = comp.decompress(buf, out="device")
+    sync(device)
+    t_d = time.perf_counter() - t0
+    launches = launch_counts()
+    check(launches == V3_LAUNCHES, f"v3: launches {launches} != {V3_LAUNCHES}")
+    check(tel_c["fallbacks"] == [] and comp.last_telemetry["fallbacks"] == [], "v3: fallbacks recorded on the card")
+    geometry = chunk_geometry(buf)
+    check(y.device == x.device and tuple(y.shape) == tuple(x.shape), f"v3: decoded {y.device} {tuple(y.shape)}")
+    worst = max(float((y[lo: lo + n].double() - x[lo: lo + n].double()).abs().max()) / eb for lo, n, eb in geometry)
+    check(worst <= 1 + SLACK, f"v3: max err/eb {worst} (each chunk against its own bound)")
+    _, payloads = frames.unpack_frames(buf)
+    for (lo, n, _), p in zip(geometry, payloads):
+        check(bytes(p) == Compressor(device=device).compress(x[lo: lo + n]),
+              f"v3: frame at row {lo} != Compressor().compress of its chunk")
+    part = comp.decompress(buf, frames=[2, 0], out="device")
+    (l2, n2, _), (l0, n0, _) = geometry[2], geometry[0]
+    check(torch.equal(part, torch.cat([y[l2: l2 + n2], y[l0: l0 + n0]])), "v3: frames=[2, 0] != the slices")
+    peak_c = peak_gib(device)
+    say(f"phase 8 ({smi}): chunk_compress of {tuple(x.shape)} in {V3_CHUNKS} chunks: {len(buf)} bytes, "
+        f"CR {x.numel() * 4 / len(buf):.4f}, max err/eb {worst:.7f}, compress {t_c:.3f} s ({mb / t_c:.1f} MB/s), "
+        f"decompress {t_d:.3f} s ({mb / t_d:.1f} MB/s); launches {launches}; every frame == Compressor().compress "
+        f"of its chunk; frames=[2, 0] == the slices")
+    out["chunks"] = {"bytes": len(buf), "cr": x.numel() * 4 / len(buf), "err_over_eb": worst, "compress_s": t_c,
+                     "decompress_s": t_d, "compress_mbps": mb / t_c, "decompress_mbps": mb / t_d,
+                     "launches": launches, "telemetry_compress": tel_c}
+    dev = [device] * V3_CHUNKS
+    reset_launch_counts()
+    sync(device)
+    t0 = time.perf_counter()
+    sb = shard_compress(x, dev)
+    sync(device)
+    t_s = time.perf_counter() - t0
+    shard_launches = launch_counts()
+    check(sb == buf, "v3: shard_compress over [cuda:0] * 4 != chunk_compress")
+    check(shard_launches["interp_encode"] == 4 and shard_launches["histogram256"] == 4
+          and shard_launches["interp_decode"] == 4, f"v3: shard_compress launches {shard_launches}")
+    sync_buf = shard_compress(x, dev, sync=True)
+    header, _ = frames.unpack_frames(buf)
+    check(sync_buf == frames.pack_frames(header, [bytes(p) for p in payloads], sync=True),
+          "v3: the sync-marked stream != the same frames with sync markers")
+    shared = Compressor(device=device)
+    timings = {}
+    for workers in (1, V3_CHUNKS, 1, V3_CHUNKS):
+        sync(device)
+        t0 = time.perf_counter()
+        yw = shard_decompress(buf, workers=workers, compressor=shared, out="device")
+        sync(device)
+        timings.setdefault(workers, []).append(time.perf_counter() - t0)
+        check(torch.equal(yw, y), f"v3: shard_decompress(workers={workers}) != the sequential decode")
+        del yw
+    say(f"  shard_compress over {V3_CHUNKS} x {device} ({V3_CHUNKS} threads, a stream each): == chunk_compress, "
+        f"{t_s:.3f} s "
+        f"({mb / t_s:.1f} MB/s), launches {shard_launches}; shard_decompress bit-equal: workers=1 "
+        f"{timings[1][0]:.3f} / {timings[1][1]:.3f} s, workers=4 {timings[4][0]:.3f} / {timings[4][1]:.3f} s")
+    out["shard"] = {"compress_s": t_s, "compress_mbps": mb / t_s, "launches": shard_launches,
+                    "decompress_workers_s": {str(k): v for k, v in timings.items()}}
+    out["salvage"] = phase_salvage(y, damaged_streams(buf, seed), geometry, device)
+    out["salvage_sync"] = phase_salvage(y, damaged_streams(sync_buf, seed), geometry, device)
+    del y, part
+    out["peak_gib_v3"] = max(peak_c, peak_gib(device))
+    out["golden"] = phase_golden_v3(device)
+    out["threads"] = phase_threads(device)
+    out["io"] = phase_io(x, "lossy,rel,0.001", smi, device)
+    out["peak_gib"] = peak_gib(device)
+    say(f"  phase 8 peak device memory: {out['peak_gib_v3']:.2f} GiB through the v3 checks, "
+        f"{out['peak_gib']:.2f} GiB with io")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -945,6 +1290,19 @@ def main() -> int:
         results["profile"][label] = phase_profile(comp, x, label)
     check(cache.hits == 1 and cache.misses == 1, f"plan cache: {cache.stats()}")
     say(f"plan cache after the two profiled runs: {cache.stats()}")
+    comp = Compressor()
+    label = f"v3 chunks (chunk_compress, {V3_CHUNKS} chunks)"
+    results["profile"][label] = phase_profile(
+        comp, x, label, compress=lambda f: core.chunk_compress(f, n_chunks=V3_CHUNKS, compressor=comp))
+    label = f"v3 shards (shard_compress over {V3_CHUNKS} x cuda:0, shard_decompress with {V3_CHUNKS} workers)"
+    results["profile"][label] = phase_profile(
+        comp, x, label, compress=lambda f: core.shard_compress(f, [device] * V3_CHUNKS),
+        decompress=lambda b: core.shard_decompress(b, workers=V3_CHUNKS, compressor=comp, out="device"))
+
+    # 8. frames v3 and the data layer
+    results["v3"] = phase_v3(x, device, smi, args.seed)
+    for k in kernels:
+        k["launches_by_path"]["v3_chunks"] = results["v3"]["chunks"]["launches"][k["name"]]
     if args.out:
         out = pathlib.Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)

@@ -77,16 +77,22 @@ def _level_pass(recon: torch.Tensor, orig: torch.Tensor, twoeb: torch.Tensor, st
     return recon, err
 
 
-def autotune(blocks: torch.Tensor, twoeb: float, levels=(8, 4, 2, 1), anchor_every: int = 16):
+def autotune(blocks: torch.Tensor, twoeb: float, levels=(8, 4, 2, 1), anchor_every: int = 16,
+             presampled: bool = False):
     """Per-level (spline x scheme) argmin of absolute error.
 
     blocks: (nb, B..) tensor. Returns (splines, schemes) tuples, one entry
     per level. Ties keep the first candidate in (spline, scheme) order.
+    ``presampled=True``: ``blocks`` already are the
+    :func:`legacy_sample_indices` sample.
     """
     ndim = blocks.dim() - 1
     B = int(blocks.shape[1])
-    idx = torch.from_numpy(legacy_sample_indices(int(blocks.shape[0]))).to(blocks.device)
-    sample = blocks.index_select(0, idx)
+    if presampled:
+        sample = blocks
+    else:
+        idx = torch.from_numpy(legacy_sample_indices(int(blocks.shape[0]))).to(blocks.device)
+        sample = blocks.index_select(0, idx)
     am = torch.from_numpy(anchor_mask(tuple(sample.shape[1:]), anchor_every)).to(blocks.device)
     recon = torch.where(am, sample, torch.zeros((), dtype=torch.float32, device=blocks.device))
     tw = f32(twoeb, blocks.device)

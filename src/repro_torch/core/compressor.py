@@ -11,9 +11,11 @@ card) and decodes by prefix sums.
 
 The bytes are the JAX package's (``repro.core.compressor``): container v2
 (``CSZH2\\n``, binary header, section table) is written, v1 (``CSZH1\\n``,
-JSON header) and v2 are read, the LLP2 stream framing and the spec-string
-grammar are the same, so a container written by either package decodes in
-the other and ``CompressorSpec.from_string(s).to_string()`` agrees.
+JSON header, by ``_sections_pack_v1``) too, and v1, v2 and v3 (``CSZH3\\n``,
+chunked frames of v1/v2 containers, repro_torch.core.frames) are read; the
+LLP2 stream framing and the spec-string grammar are the same, so a container
+written by either package decodes in the other and
+``CompressorSpec.from_string(s).to_string()`` agrees.
 
 Device: ``Compressor(device=None)`` runs on ``"cuda"`` and raises when
 CUDA is absent; ``device="cpu"`` runs the plain torch predictor and the
@@ -22,7 +24,15 @@ to build or launch raises, and ``last_telemetry["fallbacks"]`` stays empty.
 The one host route there is chosen by the format, not by an error: an hf
 stream without per-chunk offsets (containers written before the offset
 table existed) decodes on the host, recorded as
-``last_telemetry["hf_decode"] == "host-legacy"``.
+``last_telemetry["hf_decode"] == "host-legacy"``. Salvage of damaged bytes
+(``decompress(on_error="skip"|"fill")``) drops or fills what does not
+decode, as the JAX package does, but a kernel or device error
+(:data:`DEVICE_ERRORS`) always propagates.
+
+One Compressor may serve many threads at once: the per-call records
+(``last_telemetry``, ``last_damage``, ``last_plan`` and the hold flag that
+lets a nested call add to its caller's telemetry) live in a
+``threading.local``, as in the JAX package.
 
 Ported: ``predictor`` interp, auto (the per-level planner,
 repro_torch.core.autotune.autotune_plan), lorenzo and offset1d;
@@ -31,8 +41,9 @@ pipeline and ``pipeline="auto"`` (the orchestrator,
 repro_torch.core.lossless.orchestrate); NaN/Inf ingest (the nfsafe and
 nonfinite containers); an optional shared plan cache
 (repro_torch.core.plancache); ``verify`` off/sample/full; every preset of
-the JAX package; containers v2 written, v1 and v2 read. v3 containers
-(chunked frames) raise :class:`~repro_torch.core.errors.NotPortedError`.
+the JAX package; containers v1 and v2 written (v3 by
+repro_torch.core.distributed), v1, v2 and v3 read, with v3's partial decode
+(``frames=``) and salvage.
 
 Tracing: each stage runs inside a ``torch.profiler.record_function``
 span (``compress.blocks``, ``compress.plan_cache`` (the key and the
@@ -42,7 +53,8 @@ lookup), ``compress.autotune`` or ``compress.plan`` (the planner),
 choice: sample, stats and trial encodes), ``<stage>.encode``,
 ``compress.verify``, ``<stage>.decode``, ``decompress.blocks``,
 ``decompress.predict`` (also the Lorenzo and offset1d decodes),
-``decompress.scatter``); a span records only while a profiler is active.
+``decompress.scatter``, and for v3 ``decompress.frames``: the frame table
+and the CRC checks); a span records only while a profiler is active.
 
 Error-bound contract: ||x - decompress(compress(x))||_inf <= eb_abs, with
 eb_abs = eb * value_range(x) in the paper's default "rel" mode.
@@ -52,6 +64,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import struct
+import threading
 import time
 import zlib
 
@@ -61,11 +74,13 @@ from torch.profiler import record_function as span
 
 from ..kernels import interp3d as _interp
 from ..kernels import lorenzo3d as _lor
+from ..kernels.build import KernelError
 from . import blocks as blk
+from . import frames as frames_mod
 from . import lorenzo as lor
 from .autotune import (DEFAULT_STRIDES, PredictorPlan, autotune, autotune_plan, levels_for_stride, plan_signature,
                        stats_bucket)
-from .errors import BoundViolationError, ContainerError, NotPortedError, SpecError
+from .errors import BoundViolationError, ContainerError, DamageReport, FrameCRCError, SpecError
 from .lossless import orchestrate, pipelines
 from .lossless.engine import _packbits, _unpackbits
 from .lossless.flenc import fl_decode, fl_encode
@@ -75,7 +90,12 @@ from .stencils import SPLINES, build_steps
 
 MAGIC_V1 = b"CSZH1\n"
 MAGIC = b"CSZH2\n"
-MAGIC_V3 = b"CSZH3\n"
+MAGIC_V3 = frames_mod.MAGIC_V3
+
+# Errors of the card or of a kernel launch: salvage (on_error="skip"/"fill")
+# drops or fills damaged chunks, never these; they always propagate.
+DEVICE_ERRORS = (KernelError, torch.OutOfMemoryError) + (
+    (torch.AcceleratorError,) if hasattr(torch, "AcceleratorError") else ())
 
 _PREDICTORS = ("interp", "auto", "lorenzo", "offset1d")
 _BACKENDS = ("jax", "pallas")  # both mean the CUDA kernels on the card, the plain version on CPU
@@ -280,6 +300,14 @@ def _sections_pack(header: dict, sections: list[bytes]) -> bytes:
     return bytes(out)
 
 
+def _sections_pack_v1(header: dict, sections: list[bytes]) -> bytes:
+    """Container v1 (JSON header, sizes inline), the JAX package's legacy
+    writer, kept to fabricate old containers."""
+    header = dict(header, _sizes=[len(s) for s in sections])
+    hj = json.dumps(header).encode()
+    return MAGIC_V1 + len(hj).to_bytes(8, "little") + hj + b"".join(sections)
+
+
 def _sections_unpack(buf: bytes):
     """(header, sections) of a v2 or v1 container."""
     if buf[: len(MAGIC)] == MAGIC:
@@ -308,8 +336,6 @@ def _sections_unpack(buf: bytes):
             sections.append(buf[off : off + sz])
             off += sz
         return header, sections
-    if buf[: len(MAGIC_V3)] == MAGIC_V3:
-        raise NotPortedError("container v3 (chunked frames)")
     raise ContainerError(f"bad container magic {bytes(buf[:6])!r}; expected {MAGIC!r} or {MAGIC_V1!r}")
 
 
@@ -332,6 +358,18 @@ def _median_f32(v: torch.Tensor) -> float:
     return float((s[n // 2 - 1] + s[n // 2]) / 2)
 
 
+class _PerCallState(threading.local):
+    """Per-thread records of a (possibly shared) Compressor: telemetry,
+    damage report, winning plan and the hold flag, so that concurrent
+    calls never see each other's state. ``last_*`` and ``_telemetry_hold``
+    are views over it."""
+
+    telemetry = None
+    damage = None
+    plan = None
+    hold = False
+
+
 class Compressor:
     def __init__(self, spec: CompressorSpec | None = None, *, device=None, plan_cache=None, **kw):
         self.spec = spec or CompressorSpec(**kw)
@@ -344,14 +382,52 @@ class Compressor:
         # optional repro_torch.core.plancache.PlanCache, shareable across
         # compressors: a recurring field signature replays its tuning outcome
         self.plan_cache = plan_cache
-        # the winning PredictorPlan of the last predictor="auto" compress()
-        self.last_plan = None
-        # reset by compress() and decompress(): backend, engine, device,
-        # fallbacks (always empty: nothing falls back), pipeline, verify,
-        # plan_cache ("hit"/"miss"), nonfinite, psnr_search, decode timing,
-        # and the routes the stream format chose (hf_decode, host_stages)
-        self.last_telemetry = None
-        self._hold = False  # a nested decompress (verify) adds to the caller's telemetry
+        # per-thread call records (_PerCallState):
+        #   last_plan: the winning PredictorPlan of this thread's last
+        #     predictor="auto" compress();
+        #   last_telemetry: reset by compress() and decompress() unless held:
+        #     backend, engine, device, fallbacks (always empty: nothing falls
+        #     back), pipeline, verify, plan_cache ("hit"/"miss"), nonfinite,
+        #     psnr_search, decode timing, and the routes the stream format
+        #     chose (hf_decode, host_stages);
+        #   last_damage: reset by decompress(); under on_error="skip"/"fill"
+        #     the DamageReport and per-chunk intact mask of a salvaged
+        #     container (None when intact);
+        #   _telemetry_hold: a nested call (verify's decode, a v3 frame, a
+        #     chunk of chunk_compress) adds to its caller's telemetry.
+        self._call = _PerCallState()
+
+    @property
+    def last_plan(self):
+        return self._call.plan
+
+    @last_plan.setter
+    def last_plan(self, value):
+        self._call.plan = value
+
+    @property
+    def last_telemetry(self):
+        return self._call.telemetry
+
+    @last_telemetry.setter
+    def last_telemetry(self, value):
+        self._call.telemetry = value
+
+    @property
+    def last_damage(self):
+        return self._call.damage
+
+    @last_damage.setter
+    def last_damage(self, value):
+        self._call.damage = value
+
+    @property
+    def _telemetry_hold(self):
+        return self._call.hold
+
+    @_telemetry_hold.setter
+    def _telemetry_hold(self, value):
+        self._call.hold = bool(value)
 
     @property
     def _device_engine(self) -> bool:
@@ -362,6 +438,11 @@ class Compressor:
             self.last_telemetry = {"backend": self.spec.backend, "engine": self.spec.engine,
                                    "device": str(self.device), "fallbacks": []}
         return self.last_telemetry
+
+    def _record_fallback(self, point: str, src: str, dst: str, err: Exception) -> None:
+        """The JAX package's fallback record. No path of the port calls it
+        to carry on past a failure: a failing kernel or device raises."""
+        self._telemetry()["fallbacks"].append({"point": point, "from": src, "to": dst, "error": repr(err)})
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -382,8 +463,11 @@ class Compressor:
         """Compress ``x`` (numpy array or tensor) to a v2 container under the
         spec's bound; ``x`` moves to the compressor's device first. NaN and
         +-Inf points are taken out first and restored bit for bit on decode
-        (the nfsafe container); a finite field pays one ``isfinite`` scan."""
-        self.last_telemetry = None
+        (the nfsafe container); a finite field pays one ``isfinite`` scan.
+        A held call (a chunk of ``chunk_compress``) adds to the telemetry of
+        the call that holds it."""
+        if not self._telemetry_hold:
+            self.last_telemetry = None
         self._telemetry()
         xt = torch.as_tensor(x).to(device=self.device, dtype=torch.float32).contiguous()
         fin = torch.isfinite(xt)
@@ -574,24 +658,29 @@ class Compressor:
                  bool(sp.reorder), sp.pipeline, tuple(sp.pipeline_candidates or ()), sp.psnr_target)
         return plan_signature(tuple(x.shape), np.float32, sp.eb, sp.eb_mode, stats_bucket(x), extra=extra)
 
-    def _tune_interp(self, blocks: torch.Tensor, eb_abs: float, batch: int, padded_shapes):
-        """The (anchor stride, splines, schemes) the predictor will run; under
-        ``predictor="auto"`` the planner's, recorded on ``last_plan``."""
+    def _tune_interp(self, blocks: torch.Tensor, eb_abs: float, batch: int, padded_shapes,
+                     presampled_of: int | None = None):
+        """The (anchor stride, splines, schemes, plan) the predictor will run;
+        ``plan`` is the planner's PredictorPlan under ``predictor="auto"``
+        (also recorded on this thread's ``last_plan``), else None.
+        ``blocks`` is the full block batch, or the tuner's own sample of it
+        with ``presampled_of`` the true block count."""
         sp = self.spec
         if sp.predictor == "auto":
             with span("compress.plan"):
                 plan = autotune_plan(blocks, 2.0 * eb_abs, tuple(sp.plan_anchor_strides),
                                      field_shape=(batch,) + tuple(padded_shapes),
-                                     trial_pipeline=sp.pipeline if sp.pipeline != "auto" else "cr", reorder=sp.reorder)
+                                     trial_pipeline=sp.pipeline if sp.pipeline != "auto" else "cr", reorder=sp.reorder,
+                                     presampled_of=presampled_of)
             self.last_plan = plan
-            return plan.anchor_stride, plan.splines, plan.schemes
+            return plan.anchor_stride, plan.splines, plan.schemes, plan
         stride, levels = sp.anchor_stride, sp.levels
         if sp.autotune:
             with span("compress.autotune"):
-                splines, schemes = autotune(blocks, 2.0 * eb_abs, levels, stride)
+                splines, schemes = autotune(blocks, 2.0 * eb_abs, levels, stride, presampled=presampled_of is not None)
         else:
             splines, schemes = tuple(sp.splines[: len(levels)]), tuple(sp.schemes[: len(levels)])
-        return stride, splines, schemes
+        return stride, splines, schemes, None
 
     def _encode_codes(self, seq, pipeline_override: str | None = None) -> tuple[bytes, dict]:
         """Lossless-encode the code stream: (payload, header fields). Under
@@ -635,7 +724,8 @@ class Compressor:
         else:
             if ckey is not None:
                 self._telemetry()["plan_cache"] = "miss"
-            stride, splines, schemes = self._tune_interp(blocks, eb_abs, batch, padded_shapes)
+            # the plan cached below is this call's own, whatever other threads tune meanwhile
+            stride, splines, schemes, plan = self._tune_interp(blocks, eb_abs, batch, padded_shapes)
         steps = build_steps(ndim, blk.BLOCK, levels_for_stride(stride), splines, schemes)
         with span("compress.predict"):
             codes_b, _ = _interp.compress_blocks(blocks, 2.0 * eb_abs, steps, stride, with_recon=False)
@@ -664,7 +754,6 @@ class Compressor:
         buf = _sections_pack(header, [payload, anc.astype(np.float32, copy=False).tobytes(),
                                       oi.tobytes(), ov.astype(np.float32, copy=False).tobytes()])
         if ckey is not None and cached is None:
-            plan = self.last_plan if sp.predictor == "auto" else None
             with span("compress.plan_cache"):
                 self.plan_cache.put(ckey, {
                     "stride": int(stride), "splines": tuple(splines), "schemes": tuple(schemes),
@@ -696,11 +785,11 @@ class Compressor:
         points checked): absolute, or point-wise relative (``rel``; a zero
         must decode to zero); every point, or under "sample" the JAX
         package's ``np.linspace`` stride sample."""
-        hold, self._hold = self._hold, True
+        hold, self._telemetry_hold = self._telemetry_hold, True
         try:
             y = self.decompress(buf, out="device")
         finally:
-            self._hold = hold
+            self._telemetry_hold = hold
         xf, yf = x.reshape(-1).to(torch.float64), y.reshape(-1).to(torch.float64)
         n = int(xf.numel())
         if not n:
@@ -758,7 +847,44 @@ class Compressor:
     # ------------------------------------------------------------- inspect
     @staticmethod
     def inspect(buf: bytes) -> dict:
-        """Container header + section sizes, without decompressing (v1/v2)."""
+        """Container header + section sizes, without decompressing.
+
+        A v3 (chunked) container gives its global header, each frame's
+        byte size, a per-frame ``frame_crc_ok`` mask, each frame's own
+        inspect dict under ``frames`` (a compressor chunk stream), and for a
+        damaged stream a ``damage`` DamageReport: inspect does not raise for
+        frame damage, it reports what a salvage pass would recover.
+        """
+        if frames_mod.is_v3(buf):
+            try:
+                header, table = frames_mod.frame_table(buf)
+            except ContainerError:  # structurally damaged: what a salvage pass recovers
+                header = frames_mod.read_header(buf)
+                good, report = frames_mod.scan_frames(buf)
+                out = dict(header, n_frames=len(good), frame_bytes=[len(p) for _, p in good],
+                           frame_indices=[i for i, _ in good], damage=report)
+                if header.get("kind") == "chunks":
+                    out["frames"] = [Compressor.inspect(p) for _, p in good]
+                return out
+            crc_ok, payloads = [], []
+            for t in table:
+                try:
+                    payloads.append(frames_mod.read_frame(buf, t))
+                    crc_ok.append(True)
+                except FrameCRCError:
+                    payloads.append(None)
+                    crc_ok.append(False)
+            out = dict(header, n_frames=len(table), frame_bytes=[size for _, size, _ in table], frame_crc_ok=crc_ok)
+            if not all(crc_ok):
+                report = DamageReport(declared_frames=len(table), frames_ok=sum(crc_ok),
+                                      frames_damaged=len(table) - sum(crc_ok))
+                for i, ok in enumerate(crc_ok):
+                    if not ok:
+                        report.add("crc", table[i][0], index=i, detail="payload CRC32 mismatch")
+                out["damage"] = report
+            if header.get("kind") == "chunks":  # frames are themselves containers
+                out["frames"] = [None if p is None else Compressor.inspect(p) for p in payloads]
+            return out
         header, sections = _sections_unpack(buf)
         out = dict(header, section_bytes=[len(s) for s in sections])
         if header.get("mode") in ("pw_rel", "nfsafe"):  # section 0 is a full inner container
@@ -769,23 +895,61 @@ class Compressor:
         return out
 
     # ------------------------------------------------------------ decompress
-    def decompress(self, buf: bytes, *, out: str = "numpy"):
-        """Decompress a v1/v2 container.
+    def decompress(self, buf: bytes, frames=None, *, on_error: str = "raise", fill_value: float = 0.0,
+                   out: str = "numpy"):
+        """Decompress a v1/v2/v3 container.
 
         ``out="numpy"`` returns a host ndarray; ``out="device"`` a tensor on
-        the compressor's device (a CUDA tensor on the card). Records
-        ``last_telemetry["decode"]`` (engine, out, seconds, bytes, MB/s).
+        the compressor's device (a CUDA tensor on the card; a v3 stream's
+        chunks concatenate there). Records ``last_telemetry["decode"]``
+        (engine, out, seconds, bytes, MB/s).
+
+        ``frames``: v3 only, the frame indices to decode, in any order; the
+        result is those chunks concatenated along the chunk axis in that
+        order (``None``: every frame, the whole field).
+
+        ``on_error``: ``"raise"`` raises the typed error of the first damage;
+        ``"skip"`` (v3) leaves damaged chunks out; ``"fill"`` decodes them as
+        ``fill_value`` chunks of their shape (also a single v1/v2 container
+        whose header still gives the shape). A salvaging call records the
+        DamageReport and the per-requested-chunk intact mask on
+        ``last_damage`` (None when intact). Kernel and device errors
+        (:data:`DEVICE_ERRORS`) propagate under every mode.
         """
+        if on_error not in ("raise", "skip", "fill"):
+            raise ValueError(f"on_error must be 'raise', 'skip' or 'fill', got {on_error!r}")
         if out not in ("numpy", "device"):
             raise ValueError(f"out must be 'numpy' or 'device', got {out!r}")
-        hold = self._hold
+        hold = self._telemetry_hold
         if not hold:
             self.last_telemetry = None
         tel = self._telemetry()
         t0 = time.perf_counter()
-        header, sections = _sections_unpack(buf)
-        result = self._decompress_sections(header, sections, tel)
-        if out == "numpy":
+        self.last_damage = None
+        if frames_mod.is_v3(buf):
+            result = self._decompress_v3(buf, frames, on_error=on_error, fill_value=fill_value, out=out)
+        else:
+            if frames is not None:
+                raise ValueError("frames= is only meaningful for v3 (chunked) containers")
+            try:
+                header, sections = _sections_unpack(buf)
+                result = self._decompress_sections(header, sections, tel)
+            except DEVICE_ERRORS:
+                raise
+            except Exception as e:
+                if on_error != "fill":
+                    raise
+                # salvage a single container only where its header still gives the shape
+                try:
+                    shape = tuple(_sections_unpack(buf)[0]["shape"])
+                except Exception:
+                    raise e from None
+                report = DamageReport()
+                report.add("decode", 0, index=0, detail=repr(e))
+                report.frames_damaged = 1
+                self.last_damage = {"report": report, "chunks_ok": [False], "on_error": on_error}
+                result = self._fill(shape, fill_value, out)
+        if out == "numpy" and isinstance(result, torch.Tensor):
             result = result.cpu().numpy()
         if not hold:
             self._sync()
@@ -794,6 +958,118 @@ class Compressor:
             tel["decode"] = {"engine": "device" if self._device_engine else "numpy", "out": out,
                              "seconds": dt, "bytes": nbytes, "mbps": (nbytes / dt / 1e6) if dt > 0 else 0.0}
         return result
+
+    def _fill(self, shape, fill_value: float, out: str):
+        """A damaged chunk under on_error="fill": ``fill_value`` in its shape."""
+        if out == "device":
+            return torch.full(shape, float(np.float32(fill_value)), dtype=torch.float32, device=self.device)
+        return np.full(shape, np.float32(fill_value), np.float32)
+
+    @staticmethod
+    def _chunk_shape(header: dict, i: int) -> tuple:
+        """Chunk ``i``'s field shape from a v3 chunk-stream header."""
+        shape = list(header["shape"])
+        shape[int(header.get("axis", 0))] = int(header["chunk_sizes"][i])
+        return tuple(shape)
+
+    def _salvage_payloads(self, buf, on_error: str):
+        """(header, {frame index: payload}, DamageReport) of a v3 stream.
+        ``on_error="raise"`` raises on the first damage; the salvage modes
+        walk a structurally damaged stream with ``frames.scan_frames`` and
+        leave CRC-damaged frames out otherwise."""
+        with span("decompress.frames"):
+            try:
+                header, table = frames_mod.frame_table(buf)
+            except ContainerError:
+                if on_error == "raise":
+                    raise
+                header = frames_mod.read_header(buf)
+                good, report = frames_mod.scan_frames(buf)
+                return header, dict(good), report
+            report = DamageReport(declared_frames=len(table))
+            payloads = {}
+            for i, t in enumerate(table):
+                try:
+                    payloads[i] = frames_mod.read_frame(buf, t)
+                    report.frames_ok += 1
+                except FrameCRCError:
+                    if on_error == "raise":
+                        raise
+                    report.add("crc", t[0], index=i, detail="payload CRC32 mismatch")
+                    report.frames_damaged += 1
+            return header, payloads, report
+
+    def _decode_frame(self, payload, on_error: str, out: str):
+        """(chunk, None) of one v3 frame, or under salvage (None, error) for a
+        frame that does not decode (a resync false positive, garbage past the
+        CRC); kernel and device errors propagate."""
+        if on_error == "raise":
+            return self.decompress(payload, out=out), None
+        try:
+            return self.decompress(payload, out=out), None
+        except DEVICE_ERRORS:
+            raise
+        except Exception as e:
+            return None, e
+
+    @staticmethod
+    def _note_decode_damage(report: DamageReport, i: int, err: Exception | None) -> None:
+        if err is not None:
+            report.add("decode", -1, index=i, detail=repr(err))
+            report.frames_damaged += 1
+
+    def _assemble_v3(self, header: dict, idx, parts, report: DamageReport, on_error: str, fill_value: float,
+                     out: str):
+        """Concatenate the decoded chunks (None: dropped by salvage) along the
+        chunk axis, filling or skipping the dropped ones; records
+        ``last_damage`` for a damaged stream."""
+        mask = [p is not None for p in parts]
+        if on_error == "fill":
+            parts = [self._fill(self._chunk_shape(header, i), fill_value, out) if p is None else p
+                     for i, p in zip(idx, parts)]
+        parts = [p for p in parts if p is not None]
+        if not report.ok:
+            self.last_damage = {"report": report, "chunks_ok": mask, "on_error": on_error}
+        if not parts:
+            raise ContainerError(f"no decodable frames in damaged v3 container ({report.summary()})")
+        if len(parts) == 1:
+            return parts[0]
+        axis = int(header.get("axis", 0))
+        return torch.cat(parts, dim=axis) if out == "device" else np.concatenate(parts, axis=axis)
+
+    def _v3_request(self, buf, frames, on_error: str):
+        """(header, payloads, report, frame indices) of a decode request."""
+        header, payloads, report = self._salvage_payloads(buf, on_error)
+        if header.get("kind") != "chunks":
+            raise ValueError(f"v3 container kind {header.get('kind')!r} is not a compressor chunk stream; "
+                             "use its producer's reader")
+        idx = list(range(len(header["chunk_sizes"]))) if frames is None else [int(i) for i in frames]
+        if not idx:
+            raise ValueError("frames= selected no frames; pass at least one index (or None for all)")
+        return header, payloads, report, idx
+
+    def _decompress_v3(self, buf, frames=None, *, on_error: str = "raise", fill_value: float = 0.0,
+                       out: str = "numpy"):
+        """Chunked container v3: each frame (a v1/v2 container of one chunk)
+        decodes on its own, and the chunks concatenate along the chunk axis;
+        under salvage a damaged chunk costs only itself."""
+        header, payloads, report, idx = self._v3_request(buf, frames, on_error)
+        parts = []
+        # the frames' decompress() calls add to this call's telemetry
+        hold, self._telemetry_hold = self._telemetry_hold, True
+        try:
+            for i in idx:
+                if i in payloads:
+                    part, err = self._decode_frame(payloads[i], on_error, out)
+                    self._note_decode_damage(report, i, err)
+                    parts.append(part)
+                elif on_error == "raise":
+                    raise ContainerError(f"frame {i} missing from v3 container")
+                else:
+                    parts.append(None)
+        finally:
+            self._telemetry_hold = hold
+        return self._assemble_v3(header, idx, parts, report, on_error, fill_value, out)
 
     def _decompress_sections(self, header, sections, tel: dict) -> torch.Tensor:
         shape = tuple(header["shape"])

@@ -173,3 +173,25 @@ def decode(buf, *, device=None, tel: dict | None = None):
     if device is not None:
         return cur if isinstance(cur, torch.Tensor) else _upload(cur, device)
     return np.frombuffer(cur, np.uint8)
+
+
+def encode_v1(data, pipeline: str | tuple) -> bytes:
+    """The pre-LLP2 stream writer (the JAX package's, byte for byte): a u32
+    length-prefixed JSON meta block with dict headers, host stages only.
+    Kept to fabricate old streams. Binary header fields (hf's ``offs``
+    table) cannot ride JSON and are left out, so such streams decode on
+    the host."""
+    stages = _resolve(pipeline)
+    cur = np.ascontiguousarray(data, np.uint8).reshape(-1)
+    headers = []
+    for name in stages:
+        payload, hdr = get_stage(name).encode(cur)
+        hdr = {k: v for k, v in hdr.items() if not isinstance(v, (bytes, bytearray))}
+        nxt = np.frombuffer(payload, np.uint8) if isinstance(payload, bytes) else payload
+        if nxt.size + len(json.dumps(hdr)) >= cur.size and cur.size > 0:
+            headers.append({"_skip": True})  # stage expands: store-through
+            continue
+        headers.append(hdr)
+        cur = nxt
+    meta = json.dumps({"stages": list(stages), "headers": headers}).encode()
+    return len(meta).to_bytes(4, "little") + meta + cur.tobytes()

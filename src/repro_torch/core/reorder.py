@@ -88,15 +88,28 @@ def _perm_t(shape: tuple[int, ...], stride: int, reorder: bool, device: str) -> 
         lev = ld if lev is None else torch.minimum(lev, ld)
     lev = lev.expand(tuple(int(d) for d in shape)).reshape(-1)
     if reorder:
-        parts = [torch.nonzero(lev == l).reshape(-1) for l in range(lmax - 1, -1, -1)]
-        return torch.cat(parts)
-    return torch.nonzero(lev < lmax).reshape(-1)
+        perm = torch.cat([torch.nonzero(lev == l).reshape(-1) for l in range(lmax - 1, -1, -1)])
+    else:
+        perm = torch.nonzero(lev < lmax).reshape(-1)
+    if dev.type == "cuda":  # cached for every thread: finished before any other stream reads it
+        torch.cuda.current_stream(dev).synchronize()
+    return perm
+
+
+def _perm_on_stream(shape, stride, reorder, device) -> torch.Tensor:
+    """The cached permutation, marked as used by the current stream, so that
+    its memory is not reused before this stream's reads when the cache
+    drops it."""
+    perm = _perm_t(shape, stride, bool(reorder), str(device))
+    if perm.is_cuda:
+        perm.record_stream(torch.cuda.current_stream(perm.device))
+    return perm
 
 
 def reorder_codes_batch_t(grids: torch.Tensor, stride: int = ANCHOR_STRIDE, reorder: bool = True) -> torch.Tensor:
     """Torch twin of reorder_codes_batch."""
     shape = tuple(int(s) for s in grids.shape[1:])
-    perm = _perm_t(shape, stride, bool(reorder), str(grids.device))
+    perm = _perm_on_stream(shape, stride, reorder, grids.device)
     return grids.reshape(grids.shape[0], -1).index_select(1, perm).reshape(-1)
 
 
@@ -104,7 +117,7 @@ def restore_codes_batch_t(seq: torch.Tensor, batch: int, shape: tuple[int, ...],
                           stride: int = ANCHOR_STRIDE, reorder: bool = True) -> torch.Tensor:
     """Torch twin of restore_codes_batch over a uint8 sequence."""
     shape = tuple(int(s) for s in shape)
-    perm = _perm_t(shape, stride, bool(reorder), str(seq.device))
+    perm = _perm_on_stream(shape, stride, reorder, seq.device)
     out = torch.full((batch, int(np.prod(shape))), fill, dtype=seq.dtype, device=seq.device)
     out.index_copy_(1, perm, seq.reshape(batch, perm.numel()))
     return out.reshape((batch,) + shape)

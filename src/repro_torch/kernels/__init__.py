@@ -5,6 +5,7 @@ Sources live in ``repro_torch/csrc``; :mod:`.build` compiles them with
 """
 from __future__ import annotations
 
+from .build import COUNT_LOCK
 from .bitshuffle import ops as _bit
 from .histogram import ops as _hist
 from .interp3d import ops as _interp
@@ -15,10 +16,12 @@ _TABLES = (_interp.LAUNCHES, _hist.LAUNCHES, _bit.LAUNCHES, _lor.LAUNCHES)
 
 def launch_counts() -> dict[str, int]:
     """Kernel launches per kernel since the last reset."""
-    return {k: v for table in _TABLES for k, v in table.items()}
+    with COUNT_LOCK:
+        return {k: v for table in _TABLES for k, v in table.items()}
 
 
 def reset_launch_counts() -> None:
-    for table in _TABLES:
-        for key in table:
-            table[key] = 0
+    with COUNT_LOCK:
+        for table in _TABLES:
+            for key in table:
+                table[key] = 0

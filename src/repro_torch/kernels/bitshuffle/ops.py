@@ -19,7 +19,7 @@ import functools
 
 import torch
 
-from ..build import library
+from ..build import KernelError, count_launch, library
 
 BLOCK = 8192
 LAUNCHES = {"bitshuffle": 0, "bitunshuffle": 0}
@@ -117,8 +117,8 @@ def bitshuffle(data: torch.Tensor, block: int = BLOCK) -> torch.Tensor:
         rc = _lib().bitshuffle(ctypes.c_void_p(d.data_ptr()), n, ctypes.c_void_p(out.data_ptr()), nb, block,
                                _stream(d.device))
     if rc != 0:
-        raise RuntimeError(f"bitshuffle launch failed with CUDA error {rc}")
-    LAUNCHES["bitshuffle"] += 1
+        raise KernelError(f"bitshuffle launch failed with CUDA error {rc}")
+    count_launch(LAUNCHES, "bitshuffle")
     return out
 
 
@@ -138,6 +138,6 @@ def bitunshuffle(data: torch.Tensor, block: int = BLOCK) -> torch.Tensor:
         rc = _lib().bitunshuffle(ctypes.c_void_p(d.data_ptr()), ctypes.c_void_p(out.data_ptr()), nb, block,
                                  _stream(d.device))
     if rc != 0:
-        raise RuntimeError(f"bitunshuffle launch failed with CUDA error {rc}")
-    LAUNCHES["bitunshuffle"] += 1
+        raise KernelError(f"bitunshuffle launch failed with CUDA error {rc}")
+    count_launch(LAUNCHES, "bitunshuffle")
     return out

@@ -8,7 +8,11 @@ the source's hash changes: the library's file name carries the hash.
 Several processes may build at once; each writes a private temporary file
 and renames it into place.
 
-Nothing here falls back: a missing ``nvcc`` or a failed build raises.
+Nothing here falls back: a missing ``nvcc`` or a failed build raises
+:class:`KernelError`, as does every wrapper whose launch fails.
+:func:`count_launch` adds to a wrapper's launch count under one lock, so
+the counts stay exact while several threads launch (the sharded compress
+and decode).
 """
 from __future__ import annotations
 
@@ -28,6 +32,17 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+COUNT_LOCK = threading.Lock()
+
+
+class KernelError(RuntimeError):
+    """A CUDA kernel failed to build, load or launch."""
+
+
+def count_launch(table: dict, key: str) -> None:
+    """One more launch of kernel ``key`` in a wrapper's ``LAUNCHES`` table."""
+    with COUNT_LOCK:
+        table[key] += 1
 
 
 def build_dir() -> pathlib.Path:
@@ -42,7 +57,7 @@ def nvcc() -> str:
         return str(cand)
     found = shutil.which("nvcc")
     if found is None:
-        raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels build from source at first use")
+        raise KernelError("nvcc not found (set CUDA_HOME); the CUDA kernels build from source at first use")
     return found
 
 
@@ -78,7 +93,7 @@ def build(names=SOURCES) -> dict[str, float]:
             continue
         os.replace(tmp, target)
     if failed:
-        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+        raise KernelError("CUDA kernel build failed:\n" + "\n".join(failed))
     return secs
 
 

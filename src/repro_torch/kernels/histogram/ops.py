@@ -12,7 +12,7 @@ import functools
 
 import torch
 
-from ..build import library
+from ..build import KernelError, count_launch, library
 
 LAUNCHES = {"histogram256": 0}
 
@@ -46,6 +46,6 @@ def histogram256(data: torch.Tensor) -> torch.Tensor:
         rc = _lib().histogram256(ctypes.c_void_p(data.data_ptr()), int(data.numel()),
                                  ctypes.c_void_p(out.data_ptr()), ctypes.c_void_p(stream))
     if rc != 0:
-        raise RuntimeError(f"histogram256 launch failed with CUDA error {rc}")
-    LAUNCHES["histogram256"] += 1
+        raise KernelError(f"histogram256 launch failed with CUDA error {rc}")
+    count_launch(LAUNCHES, "histogram256")
     return out

@@ -21,7 +21,7 @@ import torch
 
 from ...core import predictor as _plain
 from ...core.stencils import Step, levels_for_stride
-from ..build import library
+from ..build import KernelError, count_launch, library
 
 LAUNCHES = {"interp_encode": 0, "interp_decode": 0}
 ANCHOR_STRIDES = (16, 8, 4)  # the kernels' instantiations
@@ -207,8 +207,10 @@ def _lib():
 
 
 def _table_args(tb: dict, device) -> list:
-    stream = torch.cuda.current_stream(device).cuda_stream
-    return [_p(tb["image"]), tb["n_steps"], ctypes.c_void_p(stream)]
+    stream = torch.cuda.current_stream(device)
+    # the cached image may be dropped while this stream still reads it (threads on other streams)
+    tb["image"].record_stream(stream)
+    return [_p(tb["image"]), tb["n_steps"], ctypes.c_void_p(stream.cuda_stream)]
 
 
 def compress_blocks(blocks: torch.Tensor, twoeb: float, steps: tuple[Step, ...], anchor_every: int = 16,
@@ -235,8 +237,8 @@ def compress_blocks(blocks: torch.Tensor, twoeb: float, steps: tuple[Step, ...],
                                   int(anchor_every), float(tw), float(np.float32(1.0) / tw),
                                   *_table_args(tb, blocks.device))
     if rc != 0:
-        raise RuntimeError(f"interp_encode launch failed with CUDA error {rc}")
-    LAUNCHES["interp_encode"] += 1
+        raise KernelError(f"interp_encode launch failed with CUDA error {rc}")
+    count_launch(LAUNCHES, "interp_encode")
     return codes, recon
 
 
@@ -266,6 +268,6 @@ def decompress_blocks(codes: torch.Tensor, anchors: torch.Tensor, out_keys: torc
         rc = _lib().interp_decode(_p(codes), _p(anchors), _p(keys), _p(vals), int(keys.numel()), _p(recon), nb,
                                   ndim, int(anchor_every), float(np.float32(twoeb)), *_table_args(tb, codes.device))
     if rc != 0:
-        raise RuntimeError(f"interp_decode launch failed with CUDA error {rc}")
-    LAUNCHES["interp_decode"] += 1
+        raise KernelError(f"interp_decode launch failed with CUDA error {rc}")
+    count_launch(LAUNCHES, "interp_decode")
     return recon

@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from ...core import lorenzo as _plain
-from ..build import library
+from ..build import KernelError, count_launch, library
 
 LAUNCHES = {"lorenzo_encode": 0}
 TILE_Y = 8    # rows of y in a tile where Y > 1, plus a halo row
@@ -98,8 +98,8 @@ def lorenzo_encode(x: torch.Tensor, twoeb: float, ndim_spatial: int | None = Non
                                     ctypes.c_void_p(vals.data_ptr()), cap, ctypes.c_void_p(count.data_ptr()),
                                     ctypes.c_void_p(total_h.data_ptr()), stream)
             if rc != 0:
-                raise RuntimeError(f"lorenzo_encode launch failed with CUDA error {rc}")
-            LAUNCHES["lorenzo_encode"] += 1
+                raise KernelError(f"lorenzo_encode launch failed with CUDA error {rc}")
+            count_launch(LAUNCHES, "lorenzo_encode")
             total = int(total_h[0])  # the C call waited for it: it sizes the outputs
             if total <= cap:
                 break

@@ -15,6 +15,7 @@ import torch
 
 import repro_torch.core as T
 from repro_torch.core import Compressor
+from repro_torch.core import frames as tframes
 from repro_torch.core import lorenzo as plain_lorenzo
 from repro_torch.core import predictor as plain
 from repro_torch.core.lossless import bitshuffle as host_bit
@@ -367,3 +368,35 @@ def test_pw_rel_and_psnr_target_hold_on_the_card(cuda):
     comp = Compressor(T.CompressorSpec(psnr_target=60.0))
     y = comp.decompress(comp.compress(x)).astype(np.float64)
     assert 10 * np.log10(float(x.max() - x.min()) ** 2 / np.mean((y - x) ** 2)) >= 60.0
+
+
+# ------------------------------------------------------ chunked frames (v3)
+def _walk(shape, seed=0):
+    return np.random.default_rng(seed).standard_normal(shape).astype(np.float32).cumsum(0).cumsum(1)
+
+
+@pytest.mark.parametrize("k", [2, 4])
+def test_shard_compress_on_the_card_equals_independent_compresses(cuda, k):
+    """Four shards on one card (four threads, a stream each): every frame is
+    the card's Compressor.compress of its chunk, the stream is
+    chunk_compress's and the CPU's, and the launches are exact."""
+    x = torch.from_numpy(_walk((32, 36, 40))).to(cuda)
+    reset_launch_counts()
+    sb = T.shard_compress(x, [cuda] * k)
+    counts = launch_counts()
+    assert counts["interp_encode"] == k and counts["histogram256"] == k and counts["interp_decode"] == k
+    assert sb == T.chunk_compress(x, n_chunks=k, device=cuda)
+    assert sb == T.chunk_compress(x.cpu().numpy(), n_chunks=k, device="cpu")
+    _, payloads = tframes.unpack_frames(sb)
+    rows = 32 // k
+    for i, p in enumerate(payloads):
+        assert bytes(p) == Compressor(device=cuda).compress(x[i * rows:(i + 1) * rows])
+    seq = Compressor(device=cuda).decompress(sb, out="device")
+    par = T.shard_decompress(sb, workers=k, device=cuda, out="device")
+    assert par.is_cuda and torch.equal(par, seq)
+
+
+def test_threads_share_a_compressor_and_plan_cache_on_the_card(cuda, monkeypatch):
+    from test_torch_threads import shared_compressor_keeps_each_threads_plan
+
+    shared_compressor_keeps_each_threads_plan(cuda, monkeypatch)

@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import Compressor, CompressorSpec, NotPortedError
+from repro_torch.core import Compressor, CompressorSpec, chunk_compress
 from repro_torch.core.lossless import get_stage, pipelines, register_stage
 from repro_torch.kernels import bitshuffle as bits
 from repro_torch.kernels import histogram as hist
@@ -99,13 +99,15 @@ def test_spec_values_parse_compress_and_decompress_within_the_bound(spec):
 
 
 def test_unported_inputs_and_stages_raise():
-    """Container v3 is still not ported; NaN/Inf input and the zstd stage are."""
+    """Container v3, NaN/Inf input and the zstd stage are ported: none raises."""
     x = np.ones((8, 8, 8), np.float32)
     x[1, 2, 3] = np.nan
     y = Compressor(device="cpu").decompress(Compressor(device="cpu").compress(x))
     assert np.array_equal(y.view(np.uint32), x.view(np.uint32))
-    with pytest.raises(NotPortedError):
-        Compressor(device="cpu").decompress(b"CSZH3\n" + bytes(32))
+    v3 = chunk_compress(x, n_chunks=3, device="cpu")
+    assert v3[:6] == b"CSZH3\n"
+    y3 = Compressor(device="cpu").decompress(v3)
+    assert np.array_equal(y3.view(np.uint32), x.view(np.uint32))
     assert get_stage("zstd").portable is False and get_stage("zstd").encode_device is None
     with pytest.raises(ValueError, match="already registered"):
         register_stage("zstd", lambda d: d, lambda p, h: p)
