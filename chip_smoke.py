@@ -58,7 +58,21 @@ Phases, in order; any failure exits non-zero:
      under on_error="skip" and "fill"; the golden v3 fixtures decoded on the
      card (equal to the CPU decode); two threads sharing one Compressor and
      plan cache keeping their own plans; and repro_torch.io writing and
-     reading a two-variable dataset.
+     reading a two-variable dataset;
+  9. checkpoints and guarantees: whisper-small's parameters (published
+     widths, depth cut to 1 decoder + 1 encoder layer: 34 leaves, 96,192,000
+     float32 N(0, 0.02^2) from --seed on the card, and an int32 step) through
+     repro_torch.checkpoint.save(eb=1e-3) and restore on the card, every
+     frame within its bound and the launches of that path counted (reset
+     before the save, read after the restore: the kernels line's
+     launches_by_path["checkpoint"]); a profiled save of one decoder layer's
+     attention and MLP w1; an AsyncCheckpointer snapshot of the state updated
+     in place right after submit (its files equal the synchronous save's);
+     a small tree's leaf files card == CPU, and a bit-flipped leaf restored
+     under strict=False from the earlier step; the adversarial corpus x
+     (abs, rel, pw_rel) holding the bound or raising a typed error on the
+     card, and perturb_quant_codes repaired by verify="sample" and raising
+     BoundViolationError when persistent.
 Prints one JSON line of kernels, then, as the last line,
 {"ok": true, "device": {...}}. Without CUDA it exits non-zero and prints no result.
 
@@ -102,6 +116,11 @@ V3_CHUNKS = 4
 V3_LAUNCHES = {"interp_encode": 4, "interp_decode": 8, "histogram256": 4, "bitshuffle": 0, "bitunshuffle": 0,
                "lorenzo_encode": 0}
 GOLDEN_V3 = ("golden_v3", "golden_v3_bitflip", "golden_v3_trunc", "golden_v3_torn")
+# phase 9: whisper-small (src/repro/configs/whisper_small.py, arXiv:2212.04356) at its published
+# widths (d_model 768, 12 heads, d_ff 3072, vocab 51865, untied lm_head, qkv biases), depth cut
+# from 12 decoder + 12 encoder layers to 1 + 1
+WHISPER_SMALL = {"d_model": 768, "d_ff": 3072, "vocab": 51865, "dec_layers": 1, "enc_layers": 1}
+CKPT_EB = 1e-3
 
 
 class SmokeFailure(AssertionError):
@@ -144,6 +163,33 @@ def smooth_big(side: int = 96):
     gr = np.linspace(0, 4 * np.pi, side)
     X, Y, Z = np.meshgrid(gr, gr, gr, indexing="ij")
     return (np.sin(X) * np.cos(Y) * np.sin(Z) + 0.3 * np.exp(-((X - 6) ** 2 + (Y - 6) ** 2) / 8)).astype(np.float32)
+
+
+def whisper_small_shapes(d_model: int, d_ff: int, vocab: int, dec_layers: int, enc_layers: int) -> dict:
+    """The parameter tree of repro.models.model.init_params for whisper-small,
+    as float32 tensors on the ``meta`` device (shapes only): the embedding,
+    the untied lm_head, the decoder stack (self attention with q/k/v biases,
+    cross attention, MLP, three norms) and the encoder stack, each stack's
+    layers along a leading axis."""
+    import torch
+
+    d, f = d_model, d_ff
+
+    def t(*shape):
+        return torch.empty(shape, dtype=torch.float32, device="meta")
+
+    def attn(n):
+        return {"bk": t(n, d), "bq": t(n, d), "bv": t(n, d), "wk": t(n, d, d), "wo": t(n, d, d), "wq": t(n, d, d),
+                "wv": t(n, d, d)}
+
+    def block(n, cross: bool):
+        b = {"attn": attn(n), "ln1": t(n, d), "ln2": t(n, d), "mlp": {"w1": t(n, d, f), "w2": t(n, f, d)}}
+        if cross:
+            b.update(cross=attn(n), ln_x=t(n, d))
+        return b
+
+    return {"embed": t(vocab, d), "enc_norm": t(d), "enc_stack": [block(enc_layers, False)], "final_norm": t(d),
+            "lm_head": t(d, vocab), "stack": [block(dec_layers, True)]}
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -391,7 +437,7 @@ def phase_bits_lorenzo(device, g) -> None:
 
 
 def _is_span(name: str) -> bool:
-    return name.startswith(("compress.", "decompress.")) or name.endswith((".encode", ".decode"))
+    return name.startswith(("compress.", "decompress.", "checkpoint.")) or name.endswith((".encode", ".decode"))
 
 
 def _innermost_name(mangled: str) -> str:
@@ -492,15 +538,13 @@ def interp_main_shapes(x, header: dict, iters: int) -> dict:
             "decode_ms": cuda_ms(lambda: interp.decompress_blocks(ck, *dec_in, twoeb, steps, stride), iters)}
 
 
-def phase_profile(comp, x, label: str, compress=None, decompress=None) -> dict:
-    """Profile one compress + decompress (``compress(x)`` and
-    ``decompress(buf)``, by default ``comp``'s, decoding to the device);
-    returns the breakdown: per tracing span its host wall time and the device
-    time of the kernels launched inside it (spans opened in worker threads
-    do not appear; their kernels do), per kernel name its device time, and
-    the device's busy and idle share of the wall time (busy: the union of the
-    kernels' intervals, so kernels that overlap on several streams count
-    once)."""
+def profile_run(run, label: str) -> dict:
+    """Profile ``run()``; returns the breakdown: per tracing span its host
+    wall time and the device time of the kernels launched inside it (spans
+    opened in worker threads do not appear; their kernels do), per kernel
+    name its device time, and the device's busy and idle share of the wall
+    time (busy: the union of the kernels' intervals, so kernels that overlap
+    on several streams count once)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -508,11 +552,7 @@ def phase_profile(comp, x, label: str, compress=None, decompress=None) -> dict:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        buf = (compress or comp.compress)(x)
-        if decompress is None:
-            comp.decompress(buf, out="device")
-        else:
-            decompress(buf)
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     spans, kernels, intervals = {}, {}, []
@@ -536,13 +576,25 @@ def phase_profile(comp, x, label: str, compress=None, decompress=None) -> dict:
     spans = sorted(spans.values(), key=lambda r: -r["host_ms"])
     kernels = sorted(kernels.values(), key=lambda r: -r["device_ms"])[:15]
     idle = 1.0 - busy_ms / wall_ms
-    say(f"profile {label} (compress + decompress, {x.numel()} points): wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms, "
-        f"device idle share {idle:.3f}")
+    say(f"profile {label}: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms, device idle share {idle:.3f}")
     for r in spans:
         say(f"  span {r['span']:<26} x{r['count']:<3} host {r['host_ms']:9.2f} ms  device {r['device_ms']:9.2f} ms")
     for r in kernels:
         say(f"  kernel x{r['count']:<5} {r['device_ms']:9.2f} ms  {r['name']}")
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms, "device_idle_share": idle, "spans": spans, "kernels": kernels}
+
+
+def phase_profile(comp, x, label: str, compress=None, decompress=None) -> dict:
+    """Profile one compress + decompress (``compress(x)`` and
+    ``decompress(buf)``, by default ``comp``'s, decoding to the device)."""
+    def run():
+        buf = (compress or comp.compress)(x)
+        if decompress is None:
+            comp.decompress(buf, out="device")
+        else:
+            decompress(buf)
+
+    return profile_run(run, f"{label} (compress + decompress, {x.numel()} points)")
 
 
 def run_path(name: str, comp, x, expect) -> tuple[dict, bytes]:
@@ -1112,12 +1164,273 @@ def phase_v3(x, device, smi: str, seed: int) -> dict:
     return out
 
 
+def whisper_small_state(seed: int, device) -> dict:
+    """Phase 9's training state on ``device``: every whisper-small parameter
+    (whisper_small_shapes at WHISPER_SMALL) drawn N(0, 0.02^2) from a
+    torch.Generator seeded with ``seed``, and an int32 step."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def make(node):
+        if isinstance(node, dict):
+            return {k: make(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [make(v) for v in node]
+        return torch.randn(node.shape, generator=g, device=device, dtype=torch.float32).mul_(0.02)
+
+    return {"params": make(whisper_small_shapes(**WHISPER_SMALL)),
+            "step": torch.tensor(1000 + seed, dtype=torch.int32, device=device)}
+
+
+def state_template() -> dict:
+    """The restore template of phase 9's state: tensors on the meta device."""
+    import torch
+
+    return {"params": whisper_small_shapes(**WHISPER_SMALL), "step": torch.empty((), dtype=torch.int32, device="meta")}
+
+
+def check_restored(state, restored, manifest: dict, step_dir: pathlib.Path, label: str) -> float:
+    """Every leaf of ``restored`` against ``state``: an error-bounded leaf
+    within each of its frames' bound (each frame takes rel eb of its own
+    chunk of the leaf's 2-D field), the rest bit-equal. Returns the worst
+    err/eb."""
+    import torch
+
+    from repro_torch.checkpoint.codec import _as_field
+    from repro_torch.checkpoint.manager import _leaf_paths
+
+    worst = 0.0
+    for (key, a), (key_b, b) in zip(_leaf_paths(state), _leaf_paths(restored)):
+        check(key == key_b and b.device == a.device and b.dtype == a.dtype and b.shape == a.shape,
+              f"{label}: leaf {key}: restored {key_b} {b.device} {b.dtype} {tuple(b.shape)}")
+        meta = manifest["leaves"][key]
+        if meta["mode"] != "cuszhi3":
+            check(torch.equal(a, b), f"{label}: lossless leaf {key} differs")
+            continue
+        fa, fb = _as_field(a), _as_field(b)
+        for lo, n, eb_abs in chunk_geometry((step_dir / meta["file"]).read_bytes()):
+            err = float((fa[lo: lo + n].double() - fb[lo: lo + n].double()).abs().max()) / eb_abs
+            check(err <= 1 + SLACK, f"{label}: leaf {key} rows {lo}-{lo + n}: max err/eb {err}")
+            worst = max(worst, err)
+    return worst
+
+
+def phase_checkpoint_state(device, smi: str, seed: int, directory: pathlib.Path) -> dict:
+    """Phase 9a: whisper-small's parameters saved with eb and restored on the
+    card, with the launch counts of that path; one more save profiled; then
+    an AsyncCheckpointer snapshot of the same state, mutated in place right
+    after submit."""
+    import torch
+
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.checkpoint.manager import _leaf_paths
+    from repro_torch.core import Compressor
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    state = whisper_small_state(seed, device)
+    leaves = _leaf_paths(state)
+    n_float = sum(t.numel() for _, t in leaves if t.dtype == torch.float32)
+    mb = sum(t.numel() * t.element_size() for _, t in leaves) / 1e6
+    say(f"phase 9 ({smi}): whisper-small (src/repro/configs/whisper_small.py, arXiv:2212.04356) parameters at "
+        f"published widths {WHISPER_SMALL} (depth cut from 12 + 12 layers to 1 + 1): {len(leaves) - 1} parameter "
+        f"leaves, {n_float} float32 values ({mb:.1f} MB) + an int32 step, N(0, 0.02^2) from seed {seed}; "
+        f"save(eb={CKPT_EB:g}) and restore on {device}")
+    sync(device)
+    peak_reset(device)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    manifest = ckpt.save(state, directory, 1, eb=CKPT_EB, device=device)
+    sync(device)
+    t_save = time.perf_counter() - t0
+    save_launches = launch_counts()
+    t0 = time.perf_counter()
+    restored, rman = ckpt.restore(state_template(), directory, 1, device=device)
+    sync(device)
+    t_restore = time.perf_counter() - t0
+    launches = launch_counts()
+    for k in ("interp_encode", "interp_decode", "histogram256"):
+        check(launches[k] > 0, f"checkpoint: kernel {k} was not launched on the save + restore path")
+    check("salvage" not in rman, f"checkpoint: clean restore reported salvage {rman.get('salvage')}")
+    worst = check_restored(state, restored, manifest, directory / "step_00000001", "checkpoint")
+    n_frames = sum(m.get("n_frames", 0) for m in manifest["leaves"].values())
+    modes = {}
+    for m in manifest["leaves"].values():
+        modes[m["mode"]] = modes.get(m["mode"], 0) + 1
+    say(f"  save {t_save:.3f} s ({mb / t_save:.1f} MB/s), restore {t_restore:.3f} s ({mb / t_restore:.1f} MB/s), "
+        f"CR {manifest['cr']} ({manifest['raw_bytes']} -> {manifest['compressed_bytes']} bytes), {n_frames} v3 frames, "
+        f"leaf modes {modes}, max err/eb {worst:.7f}, peak device memory {peak_gib(device):.2f} GiB ({smi})")
+    say(f"  launches: save {save_launches}; save + restore {launches}")
+    out = {"model": "whisper-small", "widths": WHISPER_SMALL, "leaves": len(leaves), "float32_values": n_float,
+           "mb": mb, "eb": CKPT_EB, "save_s": t_save, "restore_s": t_restore, "save_mbps": mb / t_save,
+           "restore_mbps": mb / t_restore, "cr": manifest["cr"], "raw_bytes": manifest["raw_bytes"],
+           "compressed_bytes": manifest["compressed_bytes"], "frames": n_frames, "modes": modes,
+           "err_over_eb": worst, "launches": launches, "save_launches": save_launches,
+           "pipelines": sorted({f["pipeline"] for m in manifest["leaves"].values() if m["mode"] == "cuszhi3"
+                                for f in Compressor.inspect((directory / "step_00000001" / m["file"]).read_bytes())
+                                ["frames"]})}
+    say(f"  frame pipelines chosen: {out['pipelines']}")
+    # the profiler's own parse costs seconds per frame (tens of thousands of host
+    # events each), so one decoder layer's self-attention and first MLP matrix
+    # (7 frames, 10 leaves) stand for the state's 100 frames
+    layer = state["params"]["stack"][0]
+    part = {"attn": layer["attn"], "mlp_w1": layer["mlp"]["w1"]}
+    out["profile_save"] = profile_run(lambda: ckpt.save(part, directory / "profiled", 1, eb=CKPT_EB, device=device),
+                                      "checkpoint.save of the decoder layer's attention and MLP w1 (7 frames)")
+    # AsyncCheckpointer: the snapshot is taken at submit; an optimizer-like in-place
+    # update right after it must not reach the saved state
+    saver = ckpt.AsyncCheckpointer(directory, eb=CKPT_EB, device=device)
+    sync(device)
+    t0 = time.perf_counter()
+    saver.submit(state, 2)
+    t_submit = time.perf_counter() - t0
+    for _, t in leaves:
+        t.add_(1)
+    t0 = time.perf_counter()
+    saver.close(timeout=900)
+    t_close = time.perf_counter() - t0
+    step1, step2 = directory / "step_00000001", directory / "step_00000002"
+    for key, meta in manifest["leaves"].items():
+        check((step1 / meta["file"]).read_bytes() == (step2 / meta["file"]).read_bytes(),
+              f"async: leaf {key} of the snapshot differs from the synchronous save of the same state")
+    restored2, _ = ckpt.restore(state_template(), directory, 2, device=device)
+    for (key, a), (_, b) in zip(_leaf_paths(restored), _leaf_paths(restored2)):
+        check(torch.equal(a, b), f"async: restored leaf {key} != the synchronous save's restore")
+    del restored, restored2
+    say(f"  AsyncCheckpointer: submit blocked {t_submit * 1e3:.1f} ms (pinned host copies of {mb:.1f} MB queued), "
+        f"the state then updated in place (+1 on every leaf); close waited {t_close:.3f} s; the saved leaves == "
+        f"the synchronous save's byte for byte, and restore to the same tensors")
+    out.update(async_submit_ms=t_submit * 1e3, async_close_s=t_close)
+    return out
+
+
+def phase_checkpoint_small(device, directory: pathlib.Path) -> dict:
+    """Phase 9b: a small tree saved on the card and on the CPU (the leaf files
+    and manifests byte-equal), then a leaf of a later step damaged
+    (repro_torch.testing.faults.bit_flip) and restored under strict=False
+    from the earlier step."""
+    import torch
+
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.testing import bit_flip
+
+    xs = smooth_big()[0]  # 96 x 96: the error-bounded path
+    tree = {"w": torch.from_numpy(xs).to(device), "b": torch.arange(40, dtype=torch.int32, device=device),
+            "h": torch.linspace(-2, 2, 24, device=device).to(torch.bfloat16), "lr": 3e-4, "none": None}
+    files = {}
+    for name, dev in (("card", device), ("cpu", "cpu")):
+        d = directory / name
+        ckpt.save(tree, d, 1, eb=CKPT_EB, device=dev)
+        files[name] = {f.name: f.read_bytes() for f in sorted((d / "step_00000001").iterdir())}
+    check(files["card"] == files["cpu"], "checkpoint: card and cpu leaf files differ: "
+          + str([k for k in files["card"] if files["card"].get(k) != files["cpu"].get(k)]))
+    d = directory / "card"
+    m2 = ckpt.save(tree, d, 2, eb=CKPT_EB, device=device)
+    wfile = d / "step_00000002" / m2["leaves"]["w"]["file"]
+    buf = wfile.read_bytes()
+    wfile.write_bytes(bit_flip(buf, len(buf) // 2, 6))
+    out, man = ckpt.restore(tree, d, 2, device=device, strict=False)
+    sal = man.get("salvage", {})
+    check(list(sal.get("damaged", {})) == ["w"] and sal["fallback_steps"] == {"w": 1} and sal["lost"] == [],
+          f"checkpoint: salvage {sal}")
+    ref, _ = ckpt.restore(tree, d, 1, device=device)
+    check(all(torch.equal(out[k], ref[k]) for k in ("w", "b", "h")), "checkpoint: salvaged leaves != step 1's")
+    say(f"  small tree: card and cpu leaf files byte-equal ({len(files['card'])} files, modes "
+        f"{sorted({m['mode'] for m in m2['leaves'].values()})}); a bit flip in step 2's w restored under "
+        f"strict=False from step 1: salvage {sal['fallback_steps']}, damaged {list(sal['damaged'])}")
+    return {"files": len(files["card"]), "salvage": sal}
+
+
+def phase_guarantees(device) -> dict:
+    """Phase 9c: the adversarial corpus x {abs, rel, pw_rel} (verify=full)
+    holds the bound or raises a typed error on the card; an injected encoder
+    fault (perturb_quant_codes) is repaired by verify="sample", kept by
+    verify="off", and a persistent one raises BoundViolationError."""
+    import numpy as np
+
+    from repro_torch.core import Compressor, CompressorSpec
+    from repro_torch.core.errors import BoundViolationError, SpecError
+    from repro_torch.testing import CORPUS, corpus_field, fault_rng, fault_seed, perturb_quant_codes
+
+    outcomes = {}
+    for name in sorted(CORPUS):
+        x = corpus_field(name, seed=fault_seed())
+        for spec_str in ("lossy,abs,1e-2,verify=full", "lossy,rel,1e-3,verify=full", "lossy,pw_rel,1e-2,verify=full"):
+            sp = CompressorSpec.from_string(spec_str)
+            comp = Compressor(sp, device=device)
+            try:
+                buf = comp.compress(x)
+            except (ValueError, SpecError, BoundViolationError) as e:
+                outcomes[f"{name} {sp.eb_mode}"] = type(e).__name__
+                continue
+            y = comp.decompress(buf)
+            fin = np.isfinite(x)
+            check(np.array_equal(x[~fin].view(np.uint32), y[~fin].view(np.uint32)) and np.isfinite(y[fin]).all(),
+                  f"corpus {name} {spec_str}: non-finite points not restored bit for bit")
+            xf, yf = x[fin].astype(np.float64), y[fin].astype(np.float64)
+            if xf.size:
+                if sp.eb_mode == "abs":
+                    err = np.abs(xf - yf).max() / sp.eb
+                elif sp.eb_mode == "rel":
+                    err = np.abs(xf - yf).max() / max(sp.eb * (xf.max() - xf.min()), 1e-30)
+                else:
+                    zero = xf == 0.0
+                    check(np.array_equal(x[fin][zero].view(np.uint32), y[fin][zero].view(np.uint32)),
+                          f"corpus {name} pw_rel: zeros not exact")
+                    err = (np.abs(xf - yf)[~zero] / np.abs(xf[~zero])).max() / sp.eb if (~zero).any() else 0.0
+                check(err <= 1 + 2e-4, f"corpus {name} {spec_str}: max err/eb {err}")
+            outcomes[f"{name} {sp.eb_mode}"] = "held"
+    rng = fault_rng()
+    x = rng.standard_normal((32, 32, 32))
+    for ax in range(3):
+        x = np.cumsum(x, axis=ax)
+    x = (x / max(1.0, float(np.max(np.abs(x))))).astype(np.float32)
+    xr = float(x.max()) - float(x.min())
+    comp = Compressor(CompressorSpec(eb=1e-3, verify="sample"), device=device)
+    with perturb_quant_codes(n_calls=1, delta=8, frac=0.02) as stats:
+        buf = comp.compress(x)
+    repairs = comp.last_telemetry["verify"]["repairs"]
+    err = float(np.abs(comp.decompress(buf).astype(np.float64) - x).max()) / (1e-3 * xr)
+    check(stats["perturbed"] > 0 and repairs >= 1 and err <= 1 + 2e-4,
+          f"fault: perturbed {stats['perturbed']}, repairs {repairs}, err/eb {err}")
+    off = Compressor(CompressorSpec(eb=1e-3, verify="off"), device=device)
+    with perturb_quant_codes(n_calls=1, delta=8, frac=0.02) as stats_off:
+        err_off = float(np.abs(off.decompress(off.compress(x)).astype(np.float64) - x).max()) / (1e-3 * xr)
+    check(err_off > 1, f"fault with verify=off: err/eb {err_off} (the injected violation did not show)")
+    try:
+        with perturb_quant_codes(n_calls=99, delta=16, frac=0.05):
+            comp.compress(x)
+        raise SmokeFailure("a persistent encoder fault did not raise BoundViolationError")
+    except BoundViolationError as e:
+        persistent = {"repairs": e.repairs, "max_err": e.max_err, "bound": e.bound}
+    held = sum(v == "held" for v in outcomes.values())
+    say(f"  guarantees on {device}: the corpus x (abs, rel, pw_rel) held the bound in {held} cells and raised a "
+        f"typed error in {len(outcomes) - held} ({ {k: v for k, v in outcomes.items() if v != 'held'} }); "
+        f"perturb_quant_codes: {stats['perturbed']} codes perturbed, verify=sample repaired it in {repairs} "
+        f"rung(s) (err/eb {err:.7f}), verify=off kept it (err/eb {err_off:.2f}, {stats_off['perturbed']} "
+        f"codes), a persistent fault raised BoundViolationError after {persistent['repairs']} repairs")
+    return {"corpus": outcomes, "perturbed": stats["perturbed"], "repairs": repairs, "err_over_eb": err,
+            "off_err_over_eb": err_off, "persistent": persistent}
+
+
+def phase_checkpoint(device, smi: str, seed: int) -> dict:
+    """Phase 9: checkpoints and guarantees on the card."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as d:
+        out = phase_checkpoint_state(device, smi, seed, pathlib.Path(d) / "state")
+        out["small"] = phase_checkpoint_small(device, pathlib.Path(d) / "small")
+    out["guarantees"] = phase_guarantees(device)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--side", type=int, default=512, help="edge of the cubic main-path field")
     ap.add_argument("--out", default=None, help="write the measurements here as JSON")
     args = ap.parse_args()
+    t_start = time.perf_counter()
 
     import numpy as np
     import torch
@@ -1303,6 +1616,15 @@ def main() -> int:
     results["v3"] = phase_v3(x, device, smi, args.seed)
     for k in kernels:
         k["launches_by_path"]["v3_chunks"] = results["v3"]["chunks"]["launches"][k["name"]]
+
+    # 9. checkpoints and guarantees
+    t9 = time.perf_counter()
+    results["checkpoint"] = phase_checkpoint(device, smi, args.seed)
+    results["phase9_s"] = time.perf_counter() - t9
+    results["wall_s"] = time.perf_counter() - t_start
+    say(f"phase 9 took {results['phase9_s']:.1f} s; the script {results['wall_s']:.1f} s from its start (build included)")
+    for k in kernels:
+        k["launches_by_path"]["checkpoint"] = results["checkpoint"]["launches"][k["name"]]
     if args.out:
         out = pathlib.Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)

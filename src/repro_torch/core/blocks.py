@@ -105,7 +105,10 @@ def pad_field_batch_t(xb: torch.Tensor, stride: int = ANCHOR_STRIDE) -> torch.Te
 
 def gather_blocks_batch_t(xpb: torch.Tensor, stride: int = ANCHOR_STRIDE) -> torch.Tensor:
     """Torch twin of gather_blocks_batch: one ``unfold`` per spatial dim
-    gives the B-wide windows at the given stride; reshape copies them out."""
+    gives the B-wide windows at the given stride; reshape copies them out.
+    The result is contiguous, as the kernels require: where the field has
+    one block along every dim but the last, reshape alone would return a
+    strided view of the padded field."""
     B = stride + 1
     ndim = xpb.dim() - 1
     win = xpb
@@ -114,7 +117,7 @@ def gather_blocks_batch_t(xpb: torch.Tensor, stride: int = ANCHOR_STRIDE) -> tor
     nb = 1
     for d in range(ndim):
         nb *= win.shape[1 + d]
-    return win.reshape((xpb.shape[0] * nb,) + (B,) * ndim)
+    return win.reshape((xpb.shape[0] * nb,) + (B,) * ndim).contiguous()
 
 
 def _owner_index(n_padded: int, stride: int, device) -> tuple[torch.Tensor, torch.Tensor]:

@@ -114,6 +114,16 @@ _REPAIR_TIGHTEN = 0.5
 # a wrong code is >= 2eb off and clears this slack by orders of magnitude.
 _VERIFY_SLACK = 1e-4
 
+# Test-only fault hook (repro_torch.testing.faults.perturb_quant_codes):
+# called with the fresh (nb, 17, 17[, 17]) uint8 block codes, a tensor on
+# the compressor's device, right after the predictor and before the
+# scatter and reorder, as the JAX package's host route does; it lets the
+# chaos suite inject a real bound violation that verify= must catch. The
+# planner's trial passes never reach it. shard_compress's frames are
+# compress() of each chunk, so they reach it here; the JAX package's
+# device shards perturb the scattered code grid instead. None in production.
+_CODE_FAULT = None
+
 # ---------------------------------------------------------------- spec grammar
 #     "lossy" "," <eb_mode> "," <number> { "," key "=" value }
 #     "lossy" "," "psnr"    "," <target_dB> { "," key "=" value }
@@ -729,6 +739,8 @@ class Compressor:
         steps = build_steps(ndim, blk.BLOCK, levels_for_stride(stride), splines, schemes)
         with span("compress.predict"):
             codes_b, _ = _interp.compress_blocks(blocks, 2.0 * eb_abs, steps, stride, with_recon=False)
+        if _CODE_FAULT is not None:
+            codes_b = _CODE_FAULT(codes_b)
         del blocks
         if self._device_engine:
             # codes stay on the device through scatter, reorder and the

@@ -38,6 +38,10 @@ class FrameSyncError(ContainerError):
     """A sync-marked stream had a bad/missing per-frame sync marker."""
 
 
+class CheckpointDamageError(RuntimeError):
+    """A checkpoint leaf failed its integrity check under ``strict=True``."""
+
+
 class SpecError(ValueError):
     """A compression-spec string failed to parse or validate: bad grammar,
     unknown keys, or values that :class:`~repro_torch.core.CompressorSpec`

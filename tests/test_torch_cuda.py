@@ -400,3 +400,63 @@ def test_threads_share_a_compressor_and_plan_cache_on_the_card(cuda, monkeypatch
     from test_torch_threads import shared_compressor_keeps_each_threads_plan
 
     shared_compressor_keeps_each_threads_plan(cuda, monkeypatch)
+
+
+# ------------------------------------------------------ checkpoints and guarantees
+@pytest.mark.parametrize("shape", [(9, 1024), (16, 300), (1, 17, 64)])
+def test_fields_of_one_block_row_compress_on_the_card(cuda, shape):
+    """One block along every dim but the last: the gathered blocks are
+    contiguous, and the card writes the CPU's container."""
+    x = _walk(shape[-2:]).reshape(shape) if len(shape) == 3 else _walk(shape)
+    buf = Compressor().compress(x)
+    assert buf == Compressor(device="cpu").compress(x)
+    y = Compressor().decompress(buf, out="device")
+    assert float((y.cpu() - torch.from_numpy(x)).abs().max()) <= Compressor.inspect(buf)["eb_abs"] * (1 + 1e-4)
+
+
+def test_checkpoint_on_the_card_equals_the_cpu(cuda, tmp_path):
+    from repro_torch import checkpoint as ckpt
+
+    tree = {"w": torch.from_numpy(_walk((48, 256))).to(cuda), "b": torch.arange(9, dtype=torch.int32, device=cuda),
+            "h": torch.linspace(-1, 1, 12, device=cuda).to(torch.bfloat16), "lr": 1e-3}
+    reset_launch_counts()
+    ckpt.save(tree, tmp_path / "card", 1, eb=1e-3)
+    assert launch_counts()["interp_encode"] > 0
+    ckpt.save(tree, tmp_path / "cpu", 1, eb=1e-3, device="cpu")
+    files = [sorted((tmp_path / d / "step_00000001").iterdir()) for d in ("card", "cpu")]
+    assert [f.read_bytes() for f in files[0]] == [f.read_bytes() for f in files[1]]
+    out, _ = ckpt.restore(tree, tmp_path / "card", 1)
+    assert all(out[k].is_cuda for k in ("w", "b", "h")) and torch.equal(out["b"], tree["b"])
+    assert out["h"].dtype == torch.bfloat16 and torch.equal(out["h"], tree["h"])
+
+
+def test_async_snapshot_on_the_card_survives_in_place_update(cuda, tmp_path):
+    from repro_torch import checkpoint as ckpt
+
+    tree = {"w": torch.from_numpy(_walk((64, 128))).to(cuda), "s": torch.tensor(3, device=cuda)}
+    ref = {k: v.clone() for k, v in tree.items()}
+    saver = ckpt.AsyncCheckpointer(tmp_path)
+    saver.submit(tree, 1)
+    tree["w"].add_(1)
+    tree["s"].add_(1)
+    saver.close()
+    ckpt.save(ref, tmp_path / "sync", 1)
+    a = sorted((tmp_path / "step_00000001").iterdir())
+    b = sorted((tmp_path / "sync" / "step_00000001").iterdir())
+    assert [f.read_bytes() for f in a] == [f.read_bytes() for f in b]
+
+
+def test_encoder_fault_is_repaired_on_the_card(cuda):
+    from repro_torch.core.errors import BoundViolationError
+    from repro_torch.testing import perturb_quant_codes
+
+    x = _walk((32, 32, 32))
+    comp = Compressor(T.CompressorSpec(eb=1e-3, verify="sample"))
+    with perturb_quant_codes(n_calls=1, delta=8, frac=0.02) as stats:
+        buf = comp.compress(x)
+    assert stats["perturbed"] > 0 and comp.last_telemetry["verify"]["repairs"] >= 1
+    y = comp.decompress(buf)
+    assert float(np.abs(y - x).max()) <= 1e-3 * float(x.max() - x.min()) * (1 + 2e-4)
+    with perturb_quant_codes(n_calls=99, delta=16, frac=0.05):
+        with pytest.raises(BoundViolationError):
+            comp.compress(x)

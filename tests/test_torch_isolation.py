@@ -39,7 +39,8 @@ def test_port_sources_import_no_jax_or_repro(path):
 
 
 def test_import_leaves_jax_and_repro_out_of_sys_modules():
-    code = ("import sys, repro_torch.core, repro_torch.kernels, repro_torch.core.lossless.engine; "
+    code = ("import sys, repro_torch.core, repro_torch.kernels, repro_torch.core.lossless.engine, "
+            "repro_torch.checkpoint, repro_torch.data, repro_torch.testing; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=env, check=True)
@@ -55,6 +56,29 @@ def test_compressor_runs_on_the_card_unless_asked_for_cpu():
     assert Compressor(device="cpu").device == torch.device("cpu")
     with pytest.raises(ValueError):
         Compressor(device="meta")
+
+
+def test_checkpoints_run_on_the_card_unless_asked_for_cpu(tmp_path):
+    """save, restore, decode_tensor and AsyncCheckpointer default to the card;
+    without CUDA they raise, as Compressor() does, and take device="cpu"."""
+    from repro_torch import checkpoint as ckpt
+
+    tree = {"w": torch.arange(8, dtype=torch.float32), "s": 3}
+    payload, meta = ckpt.encode_tensor(tree["w"], device="cpu")
+    calls = [lambda **kw: ckpt.save(tree, tmp_path, 1, **kw),
+             lambda **kw: ckpt.restore(tree, tmp_path, 1, **kw),
+             lambda **kw: ckpt.decode_tensor(payload, meta, **kw),
+             lambda **kw: ckpt.encode_tensor(tree["w"], **kw),
+             lambda **kw: ckpt.AsyncCheckpointer(tmp_path / "async", **kw).close()]
+    for call in calls:
+        if torch.cuda.is_available():
+            call()
+        else:
+            with pytest.raises(RuntimeError, match="CUDA is not available"):
+                call()
+        call(device="cpu")
+    out, _ = ckpt.restore(tree, tmp_path, 1, device="cpu")
+    assert out["w"].device.type == "cpu" and torch.equal(out["w"], tree["w"]) and int(out["s"]) == 3
 
 
 def test_wrappers_raise_instead_of_falling_back():

@@ -34,6 +34,22 @@ def one_torch_thread():
     yield
     torch.set_num_threads(n)
 
+
+@pytest.fixture(autouse=True)
+def registries_as_shipped(monkeypatch):
+    """Both packages' pipeline registries without the pipelines another test
+    file registered into one of them and left there (tests/test_orchestrate.py
+    registers a third-party pipeline in the JAX package's): pipeline="auto"
+    weighs every registered pipeline, so a leftover would change one side's
+    choice and the containers compared here."""
+    from repro.core.lossless import pipelines as rpp
+    from repro_torch.core.lossless import pipelines as tpp
+
+    for name in set(rpp.PIPELINES) - set(tpp.PIPELINES):
+        monkeypatch.delitem(rpp.PIPELINES, name)
+    for name in set(tpp.PIPELINES) - set(rpp.PIPELINES):
+        monkeypatch.delitem(tpp.PIPELINES, name)
+
 DATA = pathlib.Path(__file__).parent / "data"
 SLACK = 1e-4
 
