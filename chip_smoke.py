@@ -72,7 +72,23 @@ Phases, in order; any failure exits non-zero:
      under strict=False from the earlier step; the adversarial corpus x
      (abs, rel, pw_rel) holding the bound or raising a typed error on the
      card, and perturb_quant_codes repaired by verify="sample" and raising
-     BoundViolationError when persistent.
+     BoundViolationError when persistent;
+ 10. the compressd service on the card (repro_torch.launch.compressd): an
+     in-process daemon (4 workers) takes the 512^3 field, its container
+     byte-equal to phase 4's and its compress + decompress launching exactly
+     the main path's kernels (the kernels line's launches_by_path
+     ["compressd"]), one round trip profiled with every thread's spans; four
+     tenant threads (a 256^3 Nyx-like field, a 4096^2 N(0, 0.02^2) field, a
+     gemma3-12b KV page of (4*1024*8, 256), a (128, 512, 512) v3 chunk), 4
+     compresses each, against 1 and then 4 workers: every container == the
+     in-process one, 1 plan-cache miss and 3 hits per tenant; phase 9's
+     whisper-small parameters saved twice under REPRO_COMPRESSD (single
+     containers, every leaf of the second save a plan-cache hit) and
+     restored without the daemon; Laplace gradients of whisper-small's leaf
+     shapes quantized and packed from the card, byte-equal to the host path,
+     and as 4 row shards; the CLI over a unix socket: a 96^3 container ==
+     in-process, an oversize request and a damaged container typed, SIGTERM
+     and exit code 0.
 Prints one JSON line of kernels, then, as the last line,
 {"ok": true, "device": {...}}. Without CUDA it exits non-zero and prints no result.
 
@@ -121,6 +137,12 @@ GOLDEN_V3 = ("golden_v3", "golden_v3_bitflip", "golden_v3_trunc", "golden_v3_tor
 # from 12 decoder + 12 encoder layers to 1 + 1
 WHISPER_SMALL = {"d_model": 768, "d_ff": 3072, "vocab": 51865, "dec_layers": 1, "enc_layers": 1}
 CKPT_EB = 1e-3
+# phase 10: the daemon's worker counts compared, requests per tenant, row shards
+# of the packed gradient, and the CLI's drain budget (seconds)
+COMPRESSD_WORKERS = (1, 4)
+TENANT_REQUESTS = 4
+GRAD_SHARDS = 4
+CLI_DRAIN_S = 30
 
 
 class SmokeFailure(AssertionError):
@@ -437,7 +459,8 @@ def phase_bits_lorenzo(device, g) -> None:
 
 
 def _is_span(name: str) -> bool:
-    return name.startswith(("compress.", "decompress.", "checkpoint.")) or name.endswith((".encode", ".decode"))
+    return name.startswith(("compress.", "decompress.", "checkpoint.", "compressd.")) or \
+        name.endswith((".encode", ".decode"))
 
 
 def _innermost_name(mangled: str) -> str:
@@ -538,19 +561,28 @@ def interp_main_shapes(x, header: dict, iters: int) -> dict:
             "decode_ms": cuda_ms(lambda: interp.decompress_blocks(ck, *dec_in, twoeb, steps, stride), iters)}
 
 
-def profile_run(run, label: str) -> dict:
+def profile_run(run, label: str, all_threads: bool = False) -> dict:
     """Profile ``run()``; returns the breakdown: per tracing span its host
     wall time and the device time of the kernels launched inside it (spans
-    opened in worker threads do not appear; their kernels do), per kernel
-    name its device time, and the device's busy and idle share of the wall
-    time (busy: the union of the kernels' intervals, so kernels that overlap
-    on several streams count once)."""
+    opened in other threads appear only with ``all_threads``, where this
+    torch's profiler offers it; their kernels always do), per kernel name
+    its device time, and the device's busy and idle share of the wall time
+    (busy: the union of the kernels' intervals, so kernels that overlap on
+    several streams count once)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    kw = {}
+    if all_threads:
+        try:
+            from torch._C._profiler import _ExperimentalConfig
+
+            kw["experimental_config"] = _ExperimentalConfig(profile_all_threads=True)
+        except (ImportError, TypeError):
+            say("  (this torch's profiler records the spans of the calling thread only)")
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], **kw) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
@@ -1424,6 +1456,369 @@ def phase_checkpoint(device, smi: str, seed: int) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ phase 10
+def socket_dir() -> str:
+    """A fresh directory for unix sockets, short enough for AF_UNIX's 107-byte paths."""
+    import tempfile
+
+    base = tempfile.gettempdir()
+    return tempfile.mkdtemp(prefix="cpd", dir=base if len(base) <= 60 else "/tmp")
+
+
+def phase_daemon_field(srv, x, buf_main: bytes, main: dict, smi: str) -> dict:
+    """Phase 10a: the field through the in-process daemon ``srv`` on the
+    card: one compress + decompress with the launch counts reset just before
+    and read just after (they must equal the main path's), the container
+    byte-equal to phase 4's in-process one, the decode within the bound;
+    then one more round trip profiled, every thread's spans recorded."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import Compressor
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.compressd import CompressdClient
+
+    device = x.device
+    mb = x.numel() * 4 / 1e6
+    with CompressdClient(srv.address, stream="field", timeout=600) as c:
+        check(c.ping(), "compressd: no pong")
+        sync(device)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        buf = c.compress(x)  # the card tensor goes to the host once, then over the socket
+        t_c = time.perf_counter() - t0
+        info_c = dict(c.last_info)
+        t0 = time.perf_counter()
+        y = c.decompress(buf)
+        t_d = time.perf_counter() - t0
+        info_d = dict(c.last_info)
+        launches = launch_counts()
+        check(buf == buf_main, "compressd: the daemon's container differs from the in-process Compressor().compress")
+        check(launches == main["launches"], f"compressd: launches {launches} != the main path's {main['launches']}")
+        check(info_c["fallbacks"] == 0, f"compressd: fallbacks {info_c['fallbacks']}")
+        eb_abs = Compressor.inspect(buf)["eb_abs"]
+        yt = torch.from_numpy(y).to(device)
+        check(tuple(yt.shape) == tuple(x.shape) and y.dtype == np.float32, f"compressd: decoded {y.shape} {y.dtype}")
+        err = float((yt.double() - x.double()).abs().max()) / eb_abs
+        del yt, y
+        check(err <= 1 + SLACK, f"compressd: max err/eb {err}")
+        say(f"  10a 512^3 through the daemon (workers=4, {smi}): compress {t_c:.3f} s ({mb / t_c:.1f} MB/s; the "
+            f"daemon's compress {info_c['seconds']:.3f} s, plan cache {info_c['plan_cache']}), decompress {t_d:.3f} s "
+            f"({mb / t_d:.1f} MB/s; the daemon's {info_d['seconds']:.3f} s); in process {main['compress_s']:.3f} / "
+            f"{main['decompress_s']:.3f} s; socket and copies {1 - info_c['seconds'] / t_c:.3f} / "
+            f"{1 - info_d['seconds'] / t_d:.3f} of the walls; container == in-process, err/eb {err:.7f}, "
+            f"launches {launches} (== main)")
+        prof = profile_run(lambda: c.decompress(c.compress(x)),
+                           "compressd round trip of the 512^3 field (plan cache hit; every thread)", all_threads=True)
+    return {"compress_s": t_c, "decompress_s": t_d, "compress_mbps": mb / t_c, "decompress_mbps": mb / t_d,
+            "daemon_compress_s": info_c["seconds"], "daemon_decompress_s": info_d["seconds"],
+            "socket_share_compress": 1 - info_c["seconds"] / t_c, "socket_share_decompress": 1 - info_d["seconds"] / t_d,
+            "in_process_compress_s": main["compress_s"], "in_process_decompress_s": main["decompress_s"],
+            "err_over_eb": err, "launches": launches, "profile": prof}
+
+
+def tenant_fields(x, seed: int) -> dict:
+    """Phase 10b's four tenants, host arrays made on the card from ``seed``: a
+    256^3 Nyx-like field; a (4096, 4096) checkpoint-like field N(0, 0.02^2);
+    a KV page of gemma3-12b's local layers (src/repro/configs/gemma3_12b.py:
+    batch 4 x window 1024 x 8 KV heads rows of d_head 256), Nyx-recipe
+    values; and a (128, 512, 512) v3 chunk of the 512^3 field."""
+    import torch
+
+    device = x.device
+    g = torch.Generator(device=device).manual_seed(seed + 10)
+    fields = {"nyx256": nyx_like(256, seed + 11, device),
+              "ckpt4096": torch.randn((4096, 4096), generator=g, device=device).mul_(0.02),
+              "kv_page": nyx_like(256, seed + 12, device)[:128].reshape(4 * 1024 * 8, 256),
+              "v3_chunk": x[:128]}
+    return {k: v.cpu().numpy() for k, v in fields.items()}
+
+
+def phase_tenants(fields: dict, refs: dict, device, workers: int, smi: str) -> dict:
+    """Phase 10b: four client threads, a stream each, TENANT_REQUESTS
+    compresses each, against a fresh daemon of ``workers`` workers: every
+    container == the tenant's in-process one, the plan cache missed once and
+    hit TENANT_REQUESTS - 1 times per tenant; the last container of each
+    decoded by the daemon within the bound."""
+    import threading
+
+    import numpy as np
+
+    from repro_torch.core import Compressor
+    from repro_torch.launch.compressd import CompressdClient, CompressdServer
+
+    got, errors = {}, []
+
+    def tenant(name):
+        try:
+            with CompressdClient(srv.address, stream=name, timeout=600) as c:
+                got[name] = [c.compress(fields[name]) for _ in range(TENANT_REQUESTS)]
+        except Exception as e:  # reported by the check below
+            errors.append((name, repr(e)))
+
+    with CompressdServer("127.0.0.1:0", workers=workers, device=device).start() as srv:
+        threads = [threading.Thread(target=tenant, args=(name,), name=f"tenant-{name}") for name in fields]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+            check(not t.is_alive(), f"tenants: {t.name} still running after 600 s")
+        wall = time.perf_counter() - t0
+        check(not errors, f"tenants: {errors}")
+        st = srv.stats()
+        worst = 0.0
+        with CompressdClient(srv.address, timeout=600) as c:
+            for name, x in fields.items():
+                y = c.decompress(got[name][-1]).astype(np.float64)
+                worst = max(worst, float(np.abs(y - x).max()) / Compressor.inspect(got[name][-1])["eb_abs"])
+        check(worst <= 1 + SLACK, f"tenants: max err/eb {worst}")
+    out = {"workers": workers, "wall_s": wall, "streams": {}}
+    mb_total = 0.0
+    for name, x in fields.items():
+        rec = st["streams"][name]
+        check(all(b == refs[name] for b in got[name]), f"tenants: {name}: a daemon container != the in-process one")
+        check((rec["plan_cache_misses"], rec["plan_cache_hits"]) == (1, TENANT_REQUESTS - 1),
+              f"tenants: {name}: plan cache misses/hits {rec['plan_cache_misses']}/{rec['plan_cache_hits']}")
+        out["streams"][name] = {k: rec[k] for k in ("requests", "plan_cache_hits", "plan_cache_misses", "cr", "mbps",
+                                                    "seconds")}
+        mb_total += TENANT_REQUESTS * x.nbytes / 1e6
+    out["mbps"] = mb_total / wall
+    say(f"  10b tenants, workers={workers} ({smi}): {TENANT_REQUESTS} requests each, wall {wall:.3f} s "
+        f"({out['mbps']:.1f} MB/s over all), containers == in-process, decode err/eb {worst:.7f}")
+    for name, rec in out["streams"].items():
+        say(f"    {name:<9} {fields[name].shape}: CR {rec['cr']:.4f}, {rec['mbps']:.1f} MB/s in the daemon, "
+            f"plan cache {rec['plan_cache_misses']} miss / {rec['plan_cache_hits']} hits")
+    return out
+
+
+def phase_daemon_checkpoint(addr: str, device, smi: str, seed: int, in_process: dict) -> dict:
+    """Phase 10c: phase 9's whisper-small parameters saved twice under
+    REPRO_COMPRESSD=addr and restored without it: every error-bounded leaf a
+    single container (mode "cuszhi"), every one of the second save a plan
+    cache hit, every leaf within its bound, both steps the same tensors."""
+    import os
+    import tempfile
+
+    import torch
+
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.checkpoint.manager import _leaf_paths
+    from repro_torch.core import Compressor
+
+    state = whisper_small_state(seed, device)
+    leaves = _leaf_paths(state)
+    mb = sum(t.numel() * t.element_size() for _, t in leaves) / 1e6
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cpd_") as d:
+        d = pathlib.Path(d)
+        before = os.environ.get("REPRO_COMPRESSD")
+        os.environ["REPRO_COMPRESSD"] = addr
+        try:
+            mans, walls = [], []
+            for step in (1, 2):
+                sync(device)
+                t0 = time.perf_counter()
+                mans.append(ckpt.save(state, d, step, eb=CKPT_EB, device=device))
+                sync(device)
+                walls.append(time.perf_counter() - t0)
+        finally:
+            if before is None:
+                del os.environ["REPRO_COMPRESSD"]
+            else:
+                os.environ["REPRO_COMPRESSD"] = before
+        t0 = time.perf_counter()
+        r1, _ = ckpt.restore(state_template(), d, 1, device=device)
+        sync(device)
+        t_restore = time.perf_counter() - t0
+        r2, _ = ckpt.restore(state_template(), d, 2, device=device)
+        eb_keys = [k for k, m in mans[1]["leaves"].items() if m["mode"] != "zlib" and m["mode"] != "zstd"]
+        check(eb_keys and all(mans[s]["leaves"][k]["mode"] == "cuszhi" for s in (0, 1) for k in eb_keys),
+              f"checkpoint via compressd: leaf modes {[mans[1]['leaves'][k]['mode'] for k in eb_keys]}")
+        outcomes = [[mans[s]["leaves"][k]["compressd"]["plan_cache"] for k in eb_keys] for s in (0, 1)]
+        check(all(o == "hit" for o in outcomes[1]), f"checkpoint via compressd: second save's plan cache {outcomes[1]}")
+        worst = 0.0
+        for (key, a), (_, b), (_, b2) in zip(leaves, _leaf_paths(r1), _leaf_paths(r2)):
+            check(torch.equal(b, b2), f"checkpoint via compressd: leaf {key} of step 1 != step 2")
+            meta = mans[0]["leaves"][key]
+            if meta["mode"] != "cuszhi":
+                check(torch.equal(a, b), f"checkpoint via compressd: lossless leaf {key} differs")
+                continue
+            eb_abs = Compressor.inspect((d / "step_00000001" / meta["file"]).read_bytes())["eb_abs"]
+            err = float((a.double() - b.double()).abs().max()) / eb_abs
+            check(err <= 1 + SLACK, f"checkpoint via compressd: leaf {key}: max err/eb {err}")
+            worst = max(worst, err)
+        del r1, r2
+    say(f"  10c whisper-small parameters ({mb:.1f} MB, {len(eb_keys)} error-bounded leaves as single containers) "
+        f"through the daemon ({smi}): save 1 {walls[0]:.3f} s (plan cache {sorted(set(outcomes[0]))}), save 2 "
+        f"{walls[1]:.3f} s (all hits), restore without the daemon {t_restore:.3f} s, CR {mans[1]['cr']}, max err/eb "
+        f"{worst:.7f}; in process (phase 9, v3 frames): save {in_process['save_s']:.3f} s, restore "
+        f"{in_process['restore_s']:.3f} s, CR {in_process['cr']}")
+    return {"save1_s": walls[0], "save2_s": walls[1], "restore_s": t_restore, "cr": mans[1]["cr"],
+            "eb_leaves": len(eb_keys), "err_over_eb": worst, "save1_plan_cache": outcomes[0],
+            "in_process_save_s": in_process["save_s"], "in_process_restore_s": in_process["restore_s"]}
+
+
+def laplace_grads(seed: int, device) -> list:
+    """(key, tensor) per leaf of whisper-small's parameter shapes: Laplace(0,
+    1e-3) values drawn on ``device`` by the inverse CDF from ``seed``."""
+    import torch
+
+    from repro_torch.checkpoint.manager import _leaf_paths
+
+    g = torch.Generator(device=device).manual_seed(seed + 20)
+    out = []
+    for key, t in _leaf_paths(whisper_small_shapes(**WHISPER_SMALL)):
+        u = torch.rand(t.shape, generator=g, device=device) - 0.5
+        out.append((key, -1e-3 * torch.sign(u) * torch.log1p(-2 * u.abs())))
+    return out
+
+
+def phase_grad_packer(device, seed: int, smi: str) -> dict:
+    """Phase 10d: every leaf's gradient quantized on the card and packed
+    (pipeline="auto") from the card tensor: the bytes == the same call on a
+    host copy, unpack gives the int8 and the scale exactly; the lm_head's
+    codes as 4 row shards on the card reassemble exactly, frames=[0] only
+    its slice."""
+    import struct
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.serial import unpack_obj
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.optim import (pack_quantized, pack_quantized_sharded, quantize_shard, unpack_quantized,
+                                   unpack_quantized_sharded)
+
+    grads = laplace_grads(seed, device)
+    n_int8 = packed = 0
+    t_card = t_host = 0.0
+    chosen = {}
+    reset_launch_counts()
+    for key, gt in grads:
+        q, scale = quantize_shard(gt)
+        sync(device)
+        t0 = time.perf_counter()
+        buf = pack_quantized(q, scale)
+        t_card += time.perf_counter() - t0
+        qh = q.cpu().numpy()
+        t0 = time.perf_counter()
+        ref = pack_quantized(qh, scale.cpu())
+        t_host += time.perf_counter() - t0
+        check(buf == ref, f"grad packer: leaf {key}: card bytes != host bytes")
+        q2, s2 = unpack_quantized(buf)
+        check(np.array_equal(q2, qh) and s2 == float(scale), f"grad packer: leaf {key}: unpack differs")
+        (hlen,) = struct.unpack_from("<I", buf, 0)
+        name = unpack_obj(buf[4:4 + hlen])["pipeline"]
+        chosen[name] = chosen.get(name, 0) + 1
+        n_int8 += qh.nbytes
+        packed += len(buf)
+    launches = launch_counts()
+    lm = dict(grads)["lm_head"]
+    q, scale = quantize_shard(lm)
+    rows = q.shape[0] // GRAD_SHARDS
+    shards = [((slice(i * rows, (i + 1) * rows), slice(None)), q[i * rows:(i + 1) * rows]) for i in range(GRAD_SHARDS)]
+    sbuf = pack_quantized_sharded(shards, scale)
+    full, s_full = unpack_quantized_sharded(sbuf)
+    qh = q.cpu().numpy()
+    check(np.array_equal(full, qh) and s_full == float(scale), "grad packer: the sharded payload does not reassemble")
+    part, _ = unpack_quantized_sharded(sbuf, frames=[0])
+    check(np.array_equal(part[:rows], qh[:rows]) and not part[rows:].any(), "grad packer: frames=[0] filled more")
+    say(f"  10d gradient packer ({smi}): {len(grads)} leaves of whisper-small's shapes, Laplace(0, 1e-3) from seed "
+        f"{seed + 20}: {n_int8} int8 bytes packed to {packed} ({n_int8 / packed:.4f}x), pipelines {chosen}; from the "
+        f"card {t_card:.3f} s ({n_int8 / t_card / 1e6:.1f} MB/s of int8), from the host {t_host:.3f} s "
+        f"({n_int8 / t_host / 1e6:.1f} MB/s), bytes equal; launches {launches}; lm_head as {GRAD_SHARDS} row shards "
+        f"on {device} reassembled ({len(sbuf)} bytes), frames=[0] only its slice")
+    return {"int8_bytes": n_int8, "packed_bytes": packed, "card_s": t_card, "host_s": t_host,
+            "card_mbps": n_int8 / t_card / 1e6, "host_mbps": n_int8 / t_host / 1e6, "pipelines": chosen,
+            "launches": launches, "sharded_bytes": len(sbuf)}
+
+
+def phase_cli(device, xs, smi: str) -> dict:
+    """Phase 10e: ``python -m repro_torch.launch.compressd`` on the card over a
+    unix socket: a 96^3 compress == in-process, an oversize request typed and
+    the connection alive, a damaged v3 container typed as a ContainerError
+    subclass, then SIGTERM and exit code 0 within the drain budget."""
+    import os
+    import shutil
+    import signal
+
+    import numpy as np
+
+    from repro_torch.core import Compressor, chunk_compress, frames
+    from repro_torch.core.errors import ContainerError, RequestTooLargeError
+    from repro_torch.launch.compressd import CompressdClient, wait_ready
+
+    d = socket_dir()
+    addr = f"unix:{d}/cpd.sock"
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(ROOT / "src")] + (
+        [os.environ["PYTHONPATH"]] if os.environ.get("PYTHONPATH") else [])))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "repro_torch.launch.compressd", "--addr", addr, "--workers", "4",
+                             "--max-request-mb", "4", "--drain-s", str(CLI_DRAIN_S), "--device", str(device)],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)
+    try:
+        wait_ready(addr, timeout=120)
+        t_ready = time.perf_counter() - t0
+        with CompressdClient(addr, timeout=120) as c:
+            buf = c.compress(xs)
+            check(buf == Compressor(device=device).compress(xs), "cli: the 96^3 container != in-process")
+            try:
+                c.compress(np.zeros((128, 128, 128), np.float32))
+                raise SmokeFailure("cli: an 8 MiB request under a 4 MiB cap was not rejected")
+            except RequestTooLargeError:
+                pass
+            check(c.ping(), "cli: the connection did not survive the rejection")
+            v3 = bytearray(chunk_compress(xs, n_chunks=4, device=device))
+            off, size, _ = frames.frame_table(bytes(v3))[1][1]
+            v3[off + size // 2] ^= 1 << 2
+            try:
+                c.decompress(bytes(v3))
+                raise SmokeFailure("cli: a damaged container decoded")
+            except ContainerError as e:
+                check(type(e) is not ContainerError, "cli: the damage came back untyped")
+                damage = type(e).__name__
+        t0 = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=CLI_DRAIN_S + 30)
+        t_exit = time.perf_counter() - t0
+        printed = proc.stdout.read()
+        check(rc == 0, f"cli: exit code {rc} after SIGTERM: {printed}")
+        banner = next((ln for ln in printed.splitlines() if "compressd listening on" in ln), "")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        proc.stdout.close()
+        shutil.rmtree(d, ignore_errors=True)
+    say(f"  10e CLI ({smi}): '{banner}', ready {t_ready:.1f} s after the start; 96^3 container == in-process; "
+        f"oversize -> RequestTooLargeError, then ping; a bit flip in frame 1 -> {damage}; SIGTERM -> exit 0 in "
+        f"{t_exit:.2f} s")
+    return {"ready_s": t_ready, "exit_s": t_exit, "damage_error": damage, "banner": banner}
+
+
+def phase_compressd(x, buf_main: bytes, main: dict, ckpt_in_process: dict, xs, smi: str, seed: int) -> dict:
+    """Phase 10: the compressd service on the card."""
+    from repro_torch.core import Compressor
+    from repro_torch.launch.compressd import CompressdServer
+
+    device = x.device
+    t10 = time.perf_counter()
+    say(f"phase 10 ({smi}): the compressd service on {device}")
+    out = {}
+    with CompressdServer("127.0.0.1:0", workers=4, max_request_bytes=512 << 20, device=device).start() as srv:
+        out["field"] = phase_daemon_field(srv, x, buf_main, main, smi)
+        out["checkpoint"] = phase_daemon_checkpoint(srv.address, device, smi, seed, ckpt_in_process)
+    fields = tenant_fields(x, seed)
+    refs = {name: Compressor(device=device).compress(f) for name, f in fields.items()}
+    out["tenants"] = {w: phase_tenants(fields, refs, device, w, smi) for w in COMPRESSD_WORKERS}
+    del fields, refs
+    out["grad_packer"] = phase_grad_packer(device, seed, smi)
+    out["cli"] = phase_cli(device, xs, smi)
+    out["wall_s"] = time.perf_counter() - t10
+    say(f"phase 10 took {out['wall_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1625,6 +2020,15 @@ def main() -> int:
     say(f"phase 9 took {results['phase9_s']:.1f} s; the script {results['wall_s']:.1f} s from its start (build included)")
     for k in kernels:
         k["launches_by_path"]["checkpoint"] = results["checkpoint"]["launches"][k["name"]]
+
+    # 10. the compressd service
+    results["compressd"] = phase_compressd(x, bufs["main"], results["paths"]["main"], results["checkpoint"], xs, smi,
+                                           args.seed)
+    results["wall_s"] = time.perf_counter() - t_start
+    say(f"the script took {results['wall_s']:.1f} s from its start (build included)")
+    for k in kernels:
+        k["launches_by_path"]["compressd"] = results["compressd"]["field"]["launches"][k["name"]]
+        k["launches_by_path"]["grad_packer"] = results["compressd"]["grad_packer"]["launches"][k["name"]]
     if args.out:
         out = pathlib.Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)

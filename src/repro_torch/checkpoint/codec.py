@@ -31,10 +31,15 @@ disables 64-bit floats). With more than one card and a leading axis they
 divide, the frames are encoded one shard per card (:func:`shard_compress`);
 otherwise in sequence (:func:`chunk_compress`).
 
-The ``compressd=`` route (and ``REPRO_COMPRESSD``) of the JAX package
-waits for the compressd service, which is not ported (``ROADMAP.md``,
-queue 1 item 4): the port raises before it writes anything, and never
-writes the leaf another way.
+``compressd=`` (or ``REPRO_COMPRESSD``) routes the error-bounded encode
+through a compressd daemon at that address, of either package
+(:mod:`repro_torch.launch.compressd` speaks the JAX package's protocol):
+checkpoints repeat the same tensor shapes every save, so the daemon's
+shared plan cache skips the tuners from the second save on. Such a leaf is
+one single-container payload (``mode="cuszhi"``, with the daemon's
+``plan_cache`` outcome and ``pipeline`` in ``meta["compressd"]``), as in the
+JAX package; restore needs no daemon. A daemon's error reaches the caller
+as its typed class, and the leaf is never written another way.
 
 Tracing: ``checkpoint.encode_leaf`` and ``checkpoint.decode_leaf`` span
 each leaf; the compressor's spans nest inside them.
@@ -58,6 +63,7 @@ from ..core import Compressor, CompressorSpec
 from ..core import distributed as dist
 from ..core.lossless import portable_pipelines
 from ..core.retry import RetryingWriter
+from ..launch.compressd import CompressdClient
 
 _ZSTD_LEVEL = 3
 _ZLIB_LEVEL = 6
@@ -198,15 +204,13 @@ def encode_tensor_to(f, x, *, eb: float = 0.0, spec=None, retry: bool = True, co
     instead of killing the save; the retry count lands in the returned
     meta (``io_retries``) when nonzero.
 
-    ``compressd`` (or the ``REPRO_COMPRESSD`` env var) raises
-    ``NotImplementedError`` before anything is written: the service is not
-    ported yet.
+    ``compressd`` (or the ``REPRO_COMPRESSD`` env var) sends an
+    error-bounded leaf to the compressd daemon at that address (of either
+    package) and writes its container as one ``mode="cuszhi"`` payload;
+    the meta records the daemon's plan-cache outcome and pipeline under
+    ``compressd``. A card tensor is copied to the host once, for the wire.
     """
     compressd = compressd or os.environ.get("REPRO_COMPRESSD") or None
-    if compressd:
-        raise NotImplementedError(
-            f"compressd={compressd!r}: the compressd service is not ported to repro_torch yet "
-            "(ROADMAP.md, queue 1 item 4); unset REPRO_COMPRESSD / compressd= to encode in process")
     dev = _device(device)
     x = _as_leaf(x)
     dtype = _dtype_name(x)
@@ -219,20 +223,30 @@ def encode_tensor_to(f, x, *, eb: float = 0.0, spec=None, retry: bool = True, co
             spec_str = sp.to_string()
             meta_eb = sp.eb if eb <= 0 else eb
             field = _as_field(x.to(torch.float32) if isinstance(x, torch.Tensor) else x.astype(np.float32))
-            comp = Compressor(sp, device=dev)
-            n_frames = _n_frames(field)
-            ncards = torch.cuda.device_count() if dev.type == "cuda" else 1
-            if ncards > 1 and field.shape[0] % ncards == 0:
-                # device-parallel frames: one shard per card
-                dist.shard_compress(field, dist.default_devices(), compressor=comp, out=sink, sync=True)
-                n_frames = ncards
+            if compressd:
+                with CompressdClient(compressd, stream="checkpoint") as client:
+                    buf = client.compress(field, spec=spec_str)
+                    info = client.last_info or {}
+                sink.write(buf)
+                meta.update(mode="cuszhi", eb=meta_eb, field_shape=[int(s) for s in field.shape],
+                            pipeline=sp.pipeline, predictor=sp.predictor, spec=spec_str,
+                            bytes=sink.nbytes, crc32=sink.crc32,
+                            compressd={"plan_cache": info.get("plan_cache"), "pipeline": info.get("pipeline")})
             else:
-                dist.chunk_compress(field, n_chunks=n_frames, compressor=comp, out=sink, sync=True)
-            plan = comp.last_plan  # last frame's plan (full per-frame plans ride the container)
-            meta.update(mode="cuszhi3", eb=meta_eb, field_shape=[int(s) for s in field.shape],
-                        pipeline=sp.pipeline, predictor=sp.predictor, spec=spec_str,
-                        n_frames=n_frames, bytes=sink.nbytes, crc32=sink.crc32,
-                        plan=None if plan is None else plan.to_header())
+                comp = Compressor(sp, device=dev)
+                n_frames = _n_frames(field)
+                ncards = torch.cuda.device_count() if dev.type == "cuda" else 1
+                if ncards > 1 and field.shape[0] % ncards == 0:
+                    # device-parallel frames: one shard per card
+                    dist.shard_compress(field, dist.default_devices(), compressor=comp, out=sink, sync=True)
+                    n_frames = ncards
+                else:
+                    dist.chunk_compress(field, n_chunks=n_frames, compressor=comp, out=sink, sync=True)
+                plan = comp.last_plan  # last frame's plan (full per-frame plans ride the container)
+                meta.update(mode="cuszhi3", eb=meta_eb, field_shape=[int(s) for s in field.shape],
+                            pipeline=sp.pipeline, predictor=sp.predictor, spec=spec_str,
+                            n_frames=n_frames, bytes=sink.nbytes, crc32=sink.crc32,
+                            plan=None if plan is None else plan.to_header())
         else:
             raw = _raw_bytes(x)
             if zstandard is not None:

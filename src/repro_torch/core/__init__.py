@@ -4,7 +4,8 @@ from .compressor import (cusz_hi_auto, cusz_hi_autoplan, cusz_hi_cr, cusz_hi_crz
                          cusz_l, cuszp2_like, fzgpu_like)
 from .distributed import chunk_compress, default_devices, shard_compress, shard_decompress  # noqa: F401
 from .errors import (BoundViolationError, CheckpointDamageError, ContainerError, DamageReport,  # noqa: F401
-                     FrameCRCError, FrameSyncError, SpecError, TruncatedContainerError)
+                     DeadlineExceededError, FrameCRCError, FrameSyncError, RequestTooLargeError, ServiceError,
+                     ServiceOverloadedError, ServiceProtocolError, SpecError, TruncatedContainerError)
 from .frames import FrameReader, FrameWriter, scan_frames  # noqa: F401
 from .metrics import (bit_rate, compression_ratio, max_abs_err, max_rel_err, nonfinite_count, psnr,  # noqa: F401
                       quality_report, spectral_error, ssim)

@@ -55,7 +55,8 @@ def gather_blocks_batch(xpb: np.ndarray, stride: int = ANCHOR_STRIDE) -> np.ndar
     sl = (slice(None),) + tuple(slice(None, None, stride) for _ in range(ndim))
     blocks = win[sl]  # (batch, nb0, nb1, ..., B, B, ...)
     nb = int(np.prod(blocks.shape[1 : 1 + ndim]))
-    return np.ascontiguousarray(blocks.reshape((xpb.shape[0] * nb,) + (B,) * ndim))
+    # a copy even where the window view is already contiguous: the caller gets a writable array
+    return np.array(blocks.reshape((xpb.shape[0] * nb,) + (B,) * ndim), order="C")
 
 
 def scatter_blocks_batch(blocks: np.ndarray, batch: int, shape_padded: tuple[int, ...],

@@ -61,6 +61,39 @@ class BoundViolationError(RuntimeError):
         self.repairs = int(repairs)
 
 
+class ServiceError(RuntimeError):
+    """Base for compression-service (repro_torch.launch.compressd) failures.
+
+    The daemon maps these onto typed error responses; the client maps the
+    responses back, so a caller catches the same class on either side of
+    the socket."""
+
+
+class ServiceOverloadedError(ServiceError):
+    """Load shed: the daemon's admission queue is at its depth cap (or the
+    request cannot be admitted within the configured wait). Back off and
+    retry; the request was never processed."""
+
+
+class RequestTooLargeError(ServiceError):
+    """The request payload exceeds the daemon's per-request byte cap. The
+    payload was drained, never buffered — split the field or raise the
+    server's ``max_request_bytes``."""
+
+
+class ServiceProtocolError(ServiceError):
+    """Malformed request/response framing (bad magic, header, or lengths)."""
+
+
+class DeadlineExceededError(ServiceError):
+    """The request's per-request deadline (``REPRO_COMPRESSD_DEADLINE_MS``
+    / ``CompressdServer(deadline_ms=...)``) elapsed before the daemon
+    finished it — while queued for admission or while executing. The
+    client gets this typed response instead of a hung stream; whether the
+    work completed server-side is indeterminate (the result is
+    discarded)."""
+
+
 @dataclasses.dataclass
 class DamageRecord:
     """One damaged region: what kind, where, and which frame (when known)."""

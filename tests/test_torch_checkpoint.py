@@ -10,7 +10,9 @@ container metas restore; ``restore(strict=False)`` gives the JAX
 package's ``salvage`` report on a corrupted leaf, a lost leaf and a
 missing manifest; a kernel error inside a decode propagates instead of
 being salvaged; an ``AsyncCheckpointer`` snapshot survives an in-place
-update made right after ``submit``; ``compressd=`` raises before writing.
+update made right after ``submit``; ``compressd=`` and ``REPRO_COMPRESSD``
+write single-container leaves through a daemon of either package, with the
+JAX codec's meta.
 The cases of ``tests/test_checkpoint.py`` (and the checkpoint cases of
 ``test_shard_compress.py``, ``test_orchestrate.py``, ``test_guarantees.py``
 and ``test_faults.py``) run against the port."""
@@ -642,19 +644,112 @@ def test_encode_tensor_to_retries_transient_oserror(monkeypatch):
     assert np.abs(out - x).max() <= 1e-3 * float(x.max() - x.min()) * (1 + 1e-5)
 
 
+@pytest.fixture
+def daemon(request):
+    """A fresh compressd daemon (empty plan cache) of the package
+    ``request.param`` names, on the CPU; yields its address."""
+    from repro.launch import compressd as jd
+    from repro_torch.launch import compressd as td
+
+    with (td.CompressdServer("127.0.0.1:0", workers=2, device=CPU) if request.param == "port"
+          else jd.CompressdServer("127.0.0.1:0", workers=2)).start() as srv:
+        yield srv.address
+
+
+def _daemon_field(seed=0):
+    return np.random.default_rng(seed).standard_normal((64, 96)).astype(np.float32)
+
+
+@pytest.mark.parametrize("daemon", ["port", "jax"], indirect=True)
 @pytest.mark.parametrize("route", ["argument", "env"])
-def test_compressd_route_raises_before_writing(tmp_path, monkeypatch, route):
-    x = np.random.default_rng(0).standard_normal((64, 64)).astype(np.float32)
+def test_compressd_route_writes_single_container_leaves(tmp_path, monkeypatch, daemon, route):
+    """compressd= and REPRO_COMPRESSD send each error-bounded leaf to the
+    daemon (of either package): one mode="cuszhi" container, the daemon's
+    plan-cache outcome in the meta (a hit from the second save on), and a
+    restore that needs no daemon, in both packages."""
+    x = _daemon_field()
+    bound = 1e-3 * float(x.max() - x.min()) * (1 + SLACK)
     if route == "argument":
-        sink = io.BytesIO()
-        with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-            tcodec.encode_tensor_to(sink, x, eb=1e-3, compressd="127.0.0.1:1", device=CPU)
-        assert sink.getvalue() == b""
+        metas, payloads = [], []
+        for _ in range(2):
+            sink = io.BytesIO()
+            metas.append(tcodec.encode_tensor_to(sink, torch.from_numpy(x), eb=1e-3, compressd=daemon, device=CPU))
+            payloads.append(sink.getvalue())
     else:
-        monkeypatch.setenv("REPRO_COMPRESSD", "127.0.0.1:1")
-        with pytest.raises(NotImplementedError, match="compressd"):
-            T.save({"a": np.int32(1), "x": x}, tmp_path, 1, eb=1e-3, device=CPU)
-        assert not any(tmp_path.iterdir())
+        monkeypatch.setenv("REPRO_COMPRESSD", daemon)
+        tree = {"w": torch.from_numpy(x), "step": torch.tensor(3, dtype=torch.int32)}
+        mans = [T.save(tree, tmp_path, step, eb=1e-3, device=CPU) for step in (1, 2)]
+        metas = [m["leaves"]["w"] for m in mans]
+        payloads = [(tmp_path / f"step_{step:08d}" / m["file"]).read_bytes() for step, m in zip((1, 2), metas)]
+        assert mans[1]["leaves"]["step"]["mode"] in ("zstd", "zlib")
+        monkeypatch.delenv("REPRO_COMPRESSD")
+        restored, _ = T.restore(tree, tmp_path, 2, device=CPU)
+        assert np.abs(restored["w"].numpy().astype(np.float64) - x).max() <= bound
+    assert [m["compressd"]["plan_cache"] for m in metas] == ["miss", "hit"]
+    for meta, payload in zip(metas, payloads):
+        assert meta["mode"] == "cuszhi" and meta["field_shape"] == [3, 2048] and "n_frames" not in meta
+        assert meta["compressd"]["pipeline"] == Compressor.inspect(payload)["pipeline"]
+        assert meta["bytes"] == len(payload) and meta["crc32"] == zlib.crc32(payload) & 0xFFFFFFFF
+        assert np.abs(T.decode_tensor(payload, meta, device=CPU).numpy().astype(np.float64) - x).max() <= bound
+        assert np.abs(np.asarray(J.decode_tensor(payload, meta)).astype(np.float64) - x).max() <= bound
+
+
+@pytest.mark.parametrize("daemon_kind", ["port", "jax"])
+def test_compressd_meta_equals_the_jax_codec(daemon_kind):
+    """The same leaf through the same kind of daemon (fresh, so both start
+    cold): the port codec's meta and payload are the JAX codec's, save after
+    save, and each package restores the other's within the bound."""
+    from repro.launch import compressd as jd
+    from repro_torch.launch import compressd as td
+
+    x = _daemon_field(1)
+    bound = 1e-3 * float(x.max() - x.min()) * (1 + SLACK)
+    out = {}
+    for writer in ("jax", "torch"):
+        with (td.CompressdServer("127.0.0.1:0", workers=2, device=CPU) if daemon_kind == "port"
+              else jd.CompressdServer("127.0.0.1:0", workers=2)).start() as srv:
+            runs = []
+            for _ in range(2):
+                sink = io.BytesIO()
+                if writer == "jax":
+                    meta = jcodec.encode_tensor_to(sink, x, eb=1e-3, compressd=srv.address)
+                else:
+                    meta = tcodec.encode_tensor_to(sink, torch.from_numpy(x), eb=1e-3, compressd=srv.address,
+                                                   device=CPU)
+                runs.append((meta, sink.getvalue()))
+        out[writer] = runs
+    assert out["torch"] == out["jax"]
+    (mj, pj), (mt, pt) = out["jax"][0], out["torch"][0]
+    assert list(mt) == list(mj)  # the same keys in the same order
+    assert np.abs(T.decode_tensor(pj, mj, device=CPU).numpy().astype(np.float64) - x).max() <= bound
+    assert np.abs(np.asarray(J.decode_tensor(pt, mt)).astype(np.float64) - x).max() <= bound
+
+
+@pytest.mark.parametrize("daemon", ["port"], indirect=True)
+def test_async_checkpointer_reaches_the_daemon_through_the_env(tmp_path, monkeypatch, daemon):
+    monkeypatch.setenv("REPRO_COMPRESSD", daemon)
+    x = _daemon_field(2)
+    saver = T.AsyncCheckpointer(tmp_path, eb=1e-3, device=CPU)
+    saver.submit({"w": torch.from_numpy(x)}, 1)
+    saver.close(timeout=60)
+    monkeypatch.delenv("REPRO_COMPRESSD")
+    out, man = T.restore({"w": x}, tmp_path, 1, device=CPU)
+    assert man["leaves"]["w"]["mode"] == "cuszhi" and man["leaves"]["w"]["compressd"]["plan_cache"] == "miss"
+    assert np.abs(out["w"].numpy().astype(np.float64) - x).max() <= 1e-3 * float(x.max() - x.min()) * (1 + SLACK)
+
+
+def test_unreachable_daemon_fails_the_save_and_writes_no_step(tmp_path, monkeypatch):
+    """No fallback: a daemon that does not answer fails the save; no step
+    appears and no leaf is encoded another way."""
+    from repro_torch.launch import compressd as td
+
+    srv = td.CompressdServer("127.0.0.1:0", device=CPU)
+    addr = srv.address
+    srv.close()  # nothing listens there now
+    monkeypatch.setenv("REPRO_COMPRESSD", addr)
+    with pytest.raises(OSError):
+        T.save({"w": torch.from_numpy(_daemon_field())}, tmp_path, 1, eb=1e-3, device=CPU)
+    assert T.latest_step(tmp_path) is None
 
 
 @pytest.mark.parametrize("dtype", ["float16", "bfloat16", "int8", "uint8", "int16", "uint16", "int32", "uint32",

@@ -460,3 +460,38 @@ def test_encoder_fault_is_repaired_on_the_card(cuda):
     with perturb_quant_codes(n_calls=99, delta=16, frac=0.05):
         with pytest.raises(BoundViolationError):
             comp.compress(x)
+
+
+def test_compressd_on_the_card_equals_in_process(cuda):
+    """The daemon on the card returns the in-process card container and
+    decodes it as the card decodes it; its kernels run in its workers."""
+    from repro_torch.launch.compressd import CompressdClient, CompressdServer
+
+    x = _walk((48, 48, 48))
+    with CompressdServer("127.0.0.1:0", workers=2).start() as srv:
+        assert srv.device.type == "cuda"
+        reset_launch_counts()
+        with CompressdClient(srv.address, timeout=60) as c:
+            buf = c.compress(torch.from_numpy(x).to(cuda))
+            assert c.last_info["fallbacks"] == 0
+            y = c.decompress(buf)
+        launches = launch_counts()
+    assert launches["interp_encode"] > 0 and launches["interp_decode"] > 0
+    comp = Compressor()
+    assert buf == comp.compress(x)
+    assert np.array_equal(y, comp.decompress(buf))
+
+
+def test_gradient_packer_card_bytes_equal_host_bytes(cuda):
+    from repro_torch.optim import pack_quantized, pack_quantized_sharded, quantize_shard, unpack_quantized_sharded
+
+    g = torch.from_numpy(np.random.default_rng(5).laplace(0, 1e-3, (256, 384)).astype(np.float32))
+    q_host, s_host = quantize_shard(g)
+    q_card, s_card = quantize_shard(g.to(cuda))
+    assert torch.equal(q_card.cpu(), q_host) and float(s_card) == float(s_host)
+    for pipe in ("auto", "tp", "none", "cr"):
+        assert pack_quantized(q_card, s_card, pipe) == pack_quantized(q_host.numpy(), s_host, pipe)
+    shards = [((slice(i * 64, (i + 1) * 64), slice(None)), q_card[i * 64:(i + 1) * 64]) for i in range(4)]
+    buf = pack_quantized_sharded(shards, s_card)
+    assert buf == pack_quantized_sharded([(ix, t.cpu()) for ix, t in shards], s_host)
+    assert np.array_equal(unpack_quantized_sharded(buf)[0], q_host.numpy())

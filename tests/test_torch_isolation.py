@@ -40,7 +40,8 @@ def test_port_sources_import_no_jax_or_repro(path):
 
 def test_import_leaves_jax_and_repro_out_of_sys_modules():
     code = ("import sys, repro_torch.core, repro_torch.kernels, repro_torch.core.lossless.engine, "
-            "repro_torch.checkpoint, repro_torch.data, repro_torch.testing; "
+            "repro_torch.checkpoint, repro_torch.data, repro_torch.testing, repro_torch.launch.compressd, "
+            "repro_torch.optim; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=env, check=True)
@@ -79,6 +80,25 @@ def test_checkpoints_run_on_the_card_unless_asked_for_cpu(tmp_path):
         call(device="cpu")
     out, _ = ckpt.restore(tree, tmp_path, 1, device="cpu")
     assert out["w"].device.type == "cpu" and torch.equal(out["w"], tree["w"]) and int(out["s"]) == 3
+
+
+def test_compressd_serves_on_the_card_unless_asked_for_cpu():
+    """CompressdServer() and its CLI take the card by default; without CUDA
+    they raise, as Compressor() does, before binding a socket."""
+    from repro_torch.launch.compressd import CompressdServer, main
+
+    if torch.cuda.is_available():
+        with CompressdServer("127.0.0.1:0") as srv:
+            assert srv.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            CompressdServer("127.0.0.1:0")
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            main(["--addr", "127.0.0.1:0"])
+    with CompressdServer("127.0.0.1:0", device="cpu") as srv:
+        assert srv.device == torch.device("cpu")
+    with pytest.raises(ValueError):
+        CompressdServer("127.0.0.1:0", device="meta")
 
 
 def test_wrappers_raise_instead_of_falling_back():
