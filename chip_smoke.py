@@ -88,7 +88,26 @@ Phases, in order; any failure exits non-zero:
      shapes quantized and packed from the card, byte-equal to the host path,
      and as 4 row shards; the CLI over a unix socket: a 96^3 container ==
      in-process, an oversize request and a damaged container typed, SIGTERM
-     and exit code 0.
+     and exit code 0;
+ 11. serving (repro_torch.launch.serve, repro_torch.models): 11a the entry
+     point users run, serve --arch gemma3-12b --kv-compress at its defaults
+     (batch 4, prompt 32, 32 tokens) on the whole published model (48
+     layers, 8.934 B fp32 parameters from seed 0), every logit finite and 12
+     KV frames, launches counted (the kernels line's launches_by_path
+     ["serve"]); 11b the long-prompt KV paging at gemma3-12b's published
+     widths, depth cut to one group (5 local + 1 global layers), batch 4,
+     prompt 4096 (blockwise prefill), 32 tokens: its 12-leaf cache (303 MB
+     bf16) through _kv_roundtrip in process with the launches counted from
+     before the offload to after the restore (launches_by_path["serve_kv"]),
+     every frame's float32 decode within eb * (1 + 1e-4) of its leaf and the
+     restored leaf equal to it cast back, greedy tokens from the restored
+     and the untouched cache (reported), one profiled offload + restore;
+     11c the same cache through an in-process daemon: every container equal
+     to 11b's (a plan-cache hit carries "pcached" where the in-process one
+     carries the orchestrator's "pchoice"), the hits counted; 11d the ten
+     architectures at .scaled(), the port's weights drawn on the CPU and
+     moved to the card, prefill and 4 decode steps card vs CPU within the
+     reference's own tolerances (bf16 products sum in another order there).
 Prints one JSON line of kernels, then, as the last line,
 {"ok": true, "device": {...}}. Without CUDA it exits non-zero and prints no result.
 
@@ -143,6 +162,14 @@ COMPRESSD_WORKERS = (1, 4)
 TENANT_REQUESTS = 4
 GRAD_SHARDS = 4
 CLI_DRAIN_S = 30
+# phase 11: gemma3-12b (src/repro/configs/gemma3_12b.py, hf:google/gemma-3) at its published widths;
+# 11b cuts its depth from 48 layers to one pattern group (5 local + 1 global) and pages the KV cache
+# of a 4096-token prompt (blockwise prefill: two 2048-query tiles, the tile above the diagonal skipped)
+SERVE_CUT_LAYERS = 6
+SERVE_BATCH = 4
+SERVE_PROMPT = 4096
+SERVE_TOKENS = 32
+SERVE_ARCH_STEPS = 4
 
 
 class SmokeFailure(AssertionError):
@@ -459,7 +486,7 @@ def phase_bits_lorenzo(device, g) -> None:
 
 
 def _is_span(name: str) -> bool:
-    return name.startswith(("compress.", "decompress.", "checkpoint.", "compressd.")) or \
+    return name.startswith(("compress.", "decompress.", "checkpoint.", "compressd.", "serve.")) or \
         name.endswith((".encode", ".decode"))
 
 
@@ -561,14 +588,16 @@ def interp_main_shapes(x, header: dict, iters: int) -> dict:
             "decode_ms": cuda_ms(lambda: interp.decompress_blocks(ck, *dec_in, twoeb, steps, stride), iters)}
 
 
-def profile_run(run, label: str, all_threads: bool = False) -> dict:
+def profile_run(run, label: str, all_threads: bool = False, tally: dict | None = None) -> dict:
     """Profile ``run()``; returns the breakdown: per tracing span its host
     wall time and the device time of the kernels launched inside it (spans
     opened in other threads appear only with ``all_threads``, where this
     torch's profiler offers it; their kernels always do), per kernel name
-    its device time, and the device's busy and idle share of the wall time
-    (busy: the union of the kernels' intervals, so kernels that overlap on
-    several streams count once)."""
+    its device time, the number of device kernels and copies, and the device's busy and
+    idle share of the wall time (busy: the union of the kernels' intervals,
+    so kernels that overlap on several streams count once). ``tally``:
+    {label: substring}; the count and device time of the kernels whose full
+    name holds each substring."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -588,6 +617,7 @@ def profile_run(run, label: str, all_threads: bool = False) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     spans, kernels, intervals = {}, {}, []
+    tallied = {k: {"count": 0, "device_ms": 0.0} for k in tally or {}}
     for e in prof.events():
         if e.device_type == DeviceType.CPU and _is_span(e.name):
             r = spans.setdefault(e.name, {"span": e.name, "count": 0, "host_ms": 0.0, "device_ms": 0.0})
@@ -600,6 +630,10 @@ def profile_run(run, label: str, all_threads: bool = False) -> dict:
             k = kernels.setdefault(e.name[:90], {"name": e.name[:90], "count": 0, "device_ms": 0.0})
             k["count"] += 1
             k["device_ms"] += ms
+            for key, part in (tally or {}).items():
+                if part in e.name:
+                    tallied[key]["count"] += 1
+                    tallied[key]["device_ms"] += ms
     busy_us, reach = 0.0, float("-inf")
     for start, end in sorted(intervals):
         busy_us += max(0.0, end - max(start, reach))
@@ -608,12 +642,16 @@ def profile_run(run, label: str, all_threads: bool = False) -> dict:
     spans = sorted(spans.values(), key=lambda r: -r["host_ms"])
     kernels = sorted(kernels.values(), key=lambda r: -r["device_ms"])[:15]
     idle = 1.0 - busy_ms / wall_ms
-    say(f"profile {label}: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms, device idle share {idle:.3f}")
+    say(f"profile {label}: wall {wall_ms:.1f} ms, {len(intervals)} device kernels and copies, device busy {busy_ms:.1f} ms, "
+        f"device idle share {idle:.3f}")
+    for key, r in tallied.items():
+        say(f"  kernels holding {tally[key]!r} ({key}): x{r['count']}, {r['device_ms']:.2f} ms")
     for r in spans:
         say(f"  span {r['span']:<26} x{r['count']:<3} host {r['host_ms']:9.2f} ms  device {r['device_ms']:9.2f} ms")
     for r in kernels:
         say(f"  kernel x{r['count']:<5} {r['device_ms']:9.2f} ms  {r['name']}")
-    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms, "device_idle_share": idle, "spans": spans, "kernels": kernels}
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms, "device_idle_share": idle, "device_ops": len(intervals),
+            "spans": spans, "kernels": kernels, "tally": tallied}
 
 
 def phase_profile(comp, x, label: str, compress=None, decompress=None) -> dict:
@@ -1230,10 +1268,10 @@ def check_restored(state, restored, manifest: dict, step_dir: pathlib.Path, labe
     import torch
 
     from repro_torch.checkpoint.codec import _as_field
-    from repro_torch.checkpoint.manager import _leaf_paths
+    from repro_torch.core.tree import leaf_paths
 
     worst = 0.0
-    for (key, a), (key_b, b) in zip(_leaf_paths(state), _leaf_paths(restored)):
+    for (key, a), (key_b, b) in zip(leaf_paths(state), leaf_paths(restored)):
         check(key == key_b and b.device == a.device and b.dtype == a.dtype and b.shape == a.shape,
               f"{label}: leaf {key}: restored {key_b} {b.device} {b.dtype} {tuple(b.shape)}")
         meta = manifest["leaves"][key]
@@ -1256,12 +1294,12 @@ def phase_checkpoint_state(device, smi: str, seed: int, directory: pathlib.Path)
     import torch
 
     from repro_torch import checkpoint as ckpt
-    from repro_torch.checkpoint.manager import _leaf_paths
+    from repro_torch.core.tree import leaf_paths
     from repro_torch.core import Compressor
     from repro_torch.kernels import launch_counts, reset_launch_counts
 
     state = whisper_small_state(seed, device)
-    leaves = _leaf_paths(state)
+    leaves = leaf_paths(state)
     n_float = sum(t.numel() for _, t in leaves if t.dtype == torch.float32)
     mb = sum(t.numel() * t.element_size() for _, t in leaves) / 1e6
     say(f"phase 9 ({smi}): whisper-small (src/repro/configs/whisper_small.py, arXiv:2212.04356) parameters at "
@@ -1326,7 +1364,7 @@ def phase_checkpoint_state(device, smi: str, seed: int, directory: pathlib.Path)
         check((step1 / meta["file"]).read_bytes() == (step2 / meta["file"]).read_bytes(),
               f"async: leaf {key} of the snapshot differs from the synchronous save of the same state")
     restored2, _ = ckpt.restore(state_template(), directory, 2, device=device)
-    for (key, a), (_, b) in zip(_leaf_paths(restored), _leaf_paths(restored2)):
+    for (key, a), (_, b) in zip(leaf_paths(restored), leaf_paths(restored2)):
         check(torch.equal(a, b), f"async: restored leaf {key} != the synchronous save's restore")
     del restored, restored2
     say(f"  AsyncCheckpointer: submit blocked {t_submit * 1e3:.1f} ms (pinned host copies of {mb:.1f} MB queued), "
@@ -1603,11 +1641,11 @@ def phase_daemon_checkpoint(addr: str, device, smi: str, seed: int, in_process: 
     import torch
 
     from repro_torch import checkpoint as ckpt
-    from repro_torch.checkpoint.manager import _leaf_paths
+    from repro_torch.core.tree import leaf_paths
     from repro_torch.core import Compressor
 
     state = whisper_small_state(seed, device)
-    leaves = _leaf_paths(state)
+    leaves = leaf_paths(state)
     mb = sum(t.numel() * t.element_size() for _, t in leaves) / 1e6
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cpd_") as d:
         d = pathlib.Path(d)
@@ -1637,7 +1675,7 @@ def phase_daemon_checkpoint(addr: str, device, smi: str, seed: int, in_process: 
         outcomes = [[mans[s]["leaves"][k]["compressd"]["plan_cache"] for k in eb_keys] for s in (0, 1)]
         check(all(o == "hit" for o in outcomes[1]), f"checkpoint via compressd: second save's plan cache {outcomes[1]}")
         worst = 0.0
-        for (key, a), (_, b), (_, b2) in zip(leaves, _leaf_paths(r1), _leaf_paths(r2)):
+        for (key, a), (_, b), (_, b2) in zip(leaves, leaf_paths(r1), leaf_paths(r2)):
             check(torch.equal(b, b2), f"checkpoint via compressd: leaf {key} of step 1 != step 2")
             meta = mans[0]["leaves"][key]
             if meta["mode"] != "cuszhi":
@@ -1663,11 +1701,11 @@ def laplace_grads(seed: int, device) -> list:
     1e-3) values drawn on ``device`` by the inverse CDF from ``seed``."""
     import torch
 
-    from repro_torch.checkpoint.manager import _leaf_paths
+    from repro_torch.core.tree import leaf_paths
 
     g = torch.Generator(device=device).manual_seed(seed + 20)
     out = []
-    for key, t in _leaf_paths(whisper_small_shapes(**WHISPER_SMALL)):
+    for key, t in leaf_paths(whisper_small_shapes(**WHISPER_SMALL)):
         u = torch.rand(t.shape, generator=g, device=device) - 0.5
         out.append((key, -1e-3 * torch.sign(u) * torch.log1p(-2 * u.abs())))
     return out
@@ -1816,6 +1854,319 @@ def phase_compressd(x, buf_main: bytes, main: dict, ckpt_in_process: dict, xs, s
     out["cli"] = phase_cli(device, xs, smi)
     out["wall_s"] = time.perf_counter() - t10
     say(f"phase 10 took {out['wall_s']:.1f} s")
+    return out
+
+
+# ------------------------------------------------------------------ phase 11
+def serve_cache_leaves(cache) -> list:
+    """(name, tensor) of every leaf of a cache, in the JAX package's order."""
+    from repro_torch.core.tree import leaf_paths
+
+    return leaf_paths(cache)
+
+
+def kv_roundtrip_recorded(cache, **kwargs) -> tuple:
+    """``serve._kv_roundtrip`` of ``cache`` at the default KV spec, with
+    serve's FrameWriter swapped for a subclass that keeps the file its
+    stream went to: (restored cache, stats, the stream's bytes)."""
+    from repro_torch.launch import serve
+
+    files = []
+
+    class Writer(serve.FrameWriter):
+        def __init__(self, f, *args, **kw):
+            files.append(f)
+            super().__init__(f, *args, **kw)
+
+    real, serve.FrameWriter = serve.FrameWriter, Writer
+    try:
+        restored, stats = serve._kv_roundtrip(cache, serve.DEFAULT_KV_SPEC, **kwargs)
+    finally:
+        serve.FrameWriter = real
+    return restored, stats, files[0].getvalue()
+
+
+def greedy_tokens(params, cfg, first, cache, pos0: int, steps: int):
+    """``steps`` greedy tokens decoded from ``cache`` (updated in place),
+    starting with ``first``; (B, steps) on the host."""
+    import torch
+
+    from repro_torch.models import decode_step
+
+    tok, out = first, [first]
+    for i in range(steps - 1):
+        logits, cache = decode_step(params, cfg, tok, pos0 + i, cache)
+        tok = logits.argmax(-1)
+        out.append(tok)
+    return torch.stack(out, 1).cpu()
+
+
+def phase_serve_entry(device, smi: str) -> dict:
+    """Phase 11a: ``repro_torch.launch.serve`` as users run it, on the whole
+    published gemma3-12b, at its defaults (batch 4, prompt 32, 32 tokens),
+    with --kv-compress: ``main`` is ``run`` returning what it prints. Then
+    one more decode step from the state it ended in, profiled."""
+    import torch
+
+    from repro_torch.configs import get_config, param_count
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import serve
+    from repro_torch.models import decode_step
+
+    argv = ["--arch", "gemma3-12b", "--kv-compress"]
+    cfg = get_config("gemma3-12b")
+    say(f"  11a: serve {' '.join(argv)} on {device} ({smi}): gemma3-12b at full width, {cfg.n_layers} layers "
+        f"({cfg.n_groups} groups of 5 local + 1 global), d_model {cfg.d_model}, vocab {cfg.vocab}, "
+        f"{param_count(cfg) / 1e9:.3f} B parameters ({param_count(cfg) * 4 / 1e9:.1f} GB float32)")
+    sync(device)
+    peak_reset(device)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    r = serve.run(argv)
+    sync(device)
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    peak = peak_gib(device)
+    kv = r["kv"]
+    check(r["logits_finite"], "11a: a non-finite logit")
+    check(r["tokens"].shape == (4, 32), f"11a: tokens {r['tokens'].shape}")
+    check(kv is not None and kv["frames"] == 12 and "damage" not in kv, f"11a: kv stats {kv}")
+    total = 32 + 32  # prompt + tokens: every layer's capacity (gemma3's window is 1024)
+    want = sum(2 * cfg.n_groups * 4 * min(cfg.window if kind == "local" else total, total) * cfg.n_kv_heads
+               * cfg.d_head * 2 for kind in cfg.pattern)
+    check(kv["raw_bytes"] == want, f"11a: raw bytes {kv['raw_bytes']} != {want}")
+    for k in ("interp_encode", "interp_decode", "histogram256"):
+        check(launches[k] > 0, f"11a: kernel {k} was not launched")
+    tok_s = 32 * 4 / r["decode_s"]
+    say(f"  11a done in {wall:.1f} s ({smi}): prefill {r['prefill_s'] * 1e3:.1f} ms, kv offload+restore "
+        f"{r['kv_s']:.3f} s (CR {kv['cr']:.4f}, {kv['raw_bytes']} B in 12 frames, pipelines {kv['pipelines']}), "
+        f"decode {r['decode_s'] * 1e3:.1f} ms ({tok_s:.1f} tok/s), peak device memory {peak:.2f} GiB; "
+        f"launches {launches}")
+    # one more greedy step from the state decoding ended in, profiled: its
+    # kernels, each fp32 master's cast to bf16 at its matmul, and the other
+    # copies (activation casts, cache writes)
+    tok = torch.from_numpy(r["tokens"][:, -1]).to(device)
+    step = profile_run(lambda: decode_step(r["params"], r["cfg"], tok, 32 + 31, r["cache"]),
+                       "11a one decode step (gemma3-12b, batch 4, position 63)",
+                       tally={"casts to bf16": "bfloat16_copy_kernel", "other copies": "direct_copy_kernel"})
+    out = {"wall_s": wall, "prefill_s": r["prefill_s"], "kv_s": r["kv_s"], "decode_s": r["decode_s"],
+           "decode_tok_s": tok_s, "peak_gib": peak, "kv": kv, "launches": launches,
+           "params": param_count(cfg), "tokens": r["tokens"][0, :16].tolist(), "decode_step_profile": step}
+    del r
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_kv_frames(stream: bytes, cache, restored, label: str) -> float:
+    """Every frame of ``stream`` decoded to float32 on the card lies within
+    eb * (1 + 1e-4) of its leaf's float32 value (eb from the leaf's own
+    value range), and the restored leaf is that decode cast back."""
+    import io
+
+    import torch
+
+    from repro_torch.core import Compressor, frames
+    from repro_torch.launch.serve import _pages
+
+    leaves = [t for _, t in serve_cache_leaves(cache)]
+    back = [t for _, t in serve_cache_leaves(restored)]
+    framed = [i for i, t in enumerate(leaves) if _pages(t)]
+    comp = Compressor(device=leaves[0].device)
+    worst, n = 0.0, 0
+    for k, frame in frames.FrameReader(io.BytesIO(stream)).iter_frames():
+        i = framed[k]
+        x = leaves[i].float()
+        y = comp.decompress(frame, out="device").reshape(x.shape)
+        eb_abs = 1e-3 * (float(x.max()) - float(x.min()))
+        check(abs(Compressor.inspect(frame)["eb_abs"] - eb_abs) <= 1e-6 * eb_abs, f"{label}: frame {k} eb_abs")
+        err = float((y.double() - x.double()).abs().max()) / eb_abs
+        check(err <= 1 + SLACK, f"{label}: frame {k} (leaf {i}): max err/eb {err}")
+        check(torch.equal(back[i], y.to(back[i].dtype)), f"{label}: leaf {i} is not its frame's decode")
+        worst, n = max(worst, err), n + 1
+        del x, y
+    check(n == len(framed), f"{label}: {n} frames for {len(framed)} leaves")
+    return worst
+
+
+def phase_serve_paging(device, smi: str, seed: int) -> tuple[dict, dict]:
+    """Phase 11b: the long-prompt KV paging at gemma3-12b's published widths,
+    depth cut to one pattern group: prefill, the cache through
+    _kv_roundtrip in process with the launches counted, the bound per leaf,
+    greedy decoding from the restored and the untouched cache, one profiled
+    offload + restore. Returns the results and (cache, stream) for 11c."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config, param_count
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.serve import DEFAULT_KV_SPEC, _kv_roundtrip
+    from repro_torch.models import init_params, prefill
+
+    cfg = dataclasses.replace(get_config("gemma3-12b"), n_layers=SERVE_CUT_LAYERS)
+    B, P, T = SERVE_BATCH, SERVE_PROMPT, SERVE_TOKENS
+    say(f"  11b: gemma3-12b at published widths, depth cut from 48 to {cfg.n_layers} layers (5 local + 1 global), "
+        f"{param_count(cfg) / 1e9:.3f} B parameters; batch {B}, prompt {P}, {T} tokens, spec {DEFAULT_KV_SPEC!r}")
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = init_params(cfg, gen, device)
+    tokens = torch.randint(0, cfg.vocab, (B, P), generator=gen, device=device)
+    sync(device)
+    peak_reset(device)
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, cfg, {"tokens": tokens}, cache_len=P + T)
+    sync(device)
+    t_prefill = time.perf_counter() - t0
+    check(bool(torch.isfinite(logits).all()), "11b: non-finite prefill logits")
+    leaves = serve_cache_leaves(cache)
+    shapes = sorted({tuple(t.shape) for _, t in leaves})
+    kv_bytes = sum(t.numel() * t.element_size() for _, t in leaves)
+    want = sorted({(1, B, min(cfg.window, P + T), cfg.n_kv_heads, cfg.d_head), (1, B, P + T, cfg.n_kv_heads, cfg.d_head)})
+    check(len(leaves) == 12 and shapes == want, f"11b: cache leaves {len(leaves)} of {shapes}, not {want}")
+    untouched = [t.clone() for _, t in leaves]
+    sync(device)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    restored, stats, stream = kv_roundtrip_recorded(cache)
+    sync(device)
+    t_kv = time.perf_counter() - t0
+    launches = launch_counts()
+    peak = peak_gib(device)
+    for k in ("interp_encode", "interp_decode", "histogram256"):
+        check(launches[k] > 0, f"11b: kernel {k} was not launched on the serve_kv path")
+    check(stats["frames"] == 12 and stats["raw_bytes"] == kv_bytes and "damage" not in stats, f"11b: stats {stats}")
+    worst = check_kv_frames(stream, cache, restored, "11b")
+    mb = kv_bytes / 1e6
+    say(f"  11b kv paging ({smi}): {len(leaves)} leaves {shapes}, {mb:.1f} MB bf16 ({2 * mb:.1f} MB as float32), "
+        f"prefill {t_prefill * 1e3:.1f} ms, offload + restore {t_kv:.3f} s ({2 * mb / t_kv:.1f} MB/s of float32), "
+        f"CR {stats['cr']:.4f}, pipelines {stats['pipelines']}, max err/eb {worst:.7f}, peak {peak:.2f} GiB; "
+        f"launches {launches}")
+    first = logits.argmax(-1)
+    t0 = time.perf_counter()
+    toks_restored = greedy_tokens(params, cfg, first, restored, P, T)
+    sync(device)
+    t_decode = time.perf_counter() - t0
+    it = iter(untouched)
+    from repro_torch.core.tree import tree_map
+
+    toks_plain = greedy_tokens(params, cfg, first, tree_map(lambda _: next(it), cache), P, T)
+    agree = float((toks_restored == toks_plain).float().mean())
+    first_diff = [int((toks_restored[b] != toks_plain[b]).nonzero()[0]) if bool((toks_restored[b] != toks_plain[b]).any())
+                  else None for b in range(B)]
+    say(f"  11b greedy decode of {T} tokens from the restored cache: {t_decode * 1e3:.1f} ms "
+        f"({B * T / t_decode:.1f} tok/s); tokens equal to the untouched cache's: {agree:.4f} (first difference per "
+        f"sequence: {first_diff}; reported, not checked: the offload is lossy)")
+    del untouched, toks_plain
+    prof = profile_run(lambda: _kv_roundtrip(cache, DEFAULT_KV_SPEC),
+                       f"11b serve_kv offload + restore ({len(leaves)} leaves, {mb:.1f} MB bf16)")
+    out = {"cut_layers": cfg.n_layers, "params": param_count(cfg), "batch": B, "prompt": P, "tokens": T,
+           "prefill_s": t_prefill, "kv_s": t_kv, "kv_mb": mb, "stats": stats, "err_over_eb": worst, "peak_gib": peak,
+           "launches": launches, "decode_s": t_decode, "token_agreement": agree, "first_difference": first_diff,
+           "profile": prof}
+    del params, restored, logits
+    return out, {"cache": cache, "stream": stream, "kv_s": t_kv}
+
+
+def phase_serve_daemon(device, smi: str, paged: dict) -> dict:
+    """Phase 11c: 11b's cache through an in-process port daemon on the card:
+    every container equal to 11b's in-process one (a plan-cache hit says
+    "pcached" in place of the orchestrator's "pchoice" record and is
+    otherwise byte-equal), the bound per leaf, the plan-cache hits."""
+    import io
+
+    from repro_torch.core import frames
+    from repro_torch.core.compressor import _sections_unpack
+    from repro_torch.launch.compressd import CompressdServer
+
+    cache, stream = paged["cache"], paged["stream"]
+    with CompressdServer("127.0.0.1:0", workers=2, max_request_bytes=512 << 20, device=device).start() as srv:
+        sync(device)
+        t0 = time.perf_counter()
+        restored, stats, daemon_stream = kv_roundtrip_recorded(cache, compressd=srv.address)
+        sync(device)
+        wall = time.perf_counter() - t0
+    want = [f for _, f in frames.FrameReader(io.BytesIO(stream)).iter_frames()]
+    got = [f for _, f in frames.FrameReader(io.BytesIO(daemon_stream)).iter_frames()]
+    check(len(got) == len(want) == 12, f"11c: {len(got)} frames")
+    equal = hits = 0
+    for k, (g, w) in enumerate(zip(got, want)):
+        if g == w:
+            equal += 1
+            continue
+        (gh, gs), (wh, ws) = _sections_unpack(g), _sections_unpack(w)
+        check(gh.pop("pcached", None) is True and wh.pop("pchoice", {}).get("pipeline") == gh.get("pipeline"),
+              f"11c: frame {k} differs from 11b's and is no plan-cache hit")
+        check(gh == wh and [bytes(s) for s in gs] == [bytes(s) for s in ws], f"11c: frame {k} differs from 11b's")
+        hits += 1
+    check(stats.get("plan_cache_hits", 0) == hits > 0, f"11c: plan-cache hits {stats.get('plan_cache_hits')} vs {hits}")
+    worst = check_kv_frames(daemon_stream, cache, restored, "11c")
+    say(f"  11c the cache through an in-process daemon ({smi}): {wall:.3f} s (in process {paged['kv_s']:.3f} s), "
+        f"{equal} containers byte-equal to 11b's and {hits} plan-cache hits equal to them but for the orchestrator "
+        f"record (pcached for pchoice), {stats['plan_cache_hits']} hits counted, max err/eb {worst:.7f}")
+    return {"wall_s": wall, "equal": equal, "hits": hits, "stats": stats, "err_over_eb": worst}
+
+
+def scaled_serve(cfg, params, batch, device, steps: int) -> list:
+    """Prefill logits and ``steps`` greedy decode logits of ``cfg`` on
+    ``device`` (params and batch moved there), as host float32 tensors."""
+    from repro_torch.core.tree import tree_map
+    from repro_torch.models import decode_step, prefill
+
+    params = tree_map(lambda t: t.to(device), params)
+    batch = {k: v.to(device) for k, v in batch.items()}
+    S = batch["tokens"].shape[1] + (batch["img"].shape[1] if "img" in batch else 0)
+    logits, cache = prefill(params, cfg, batch, cache_len=S + steps)
+    out = [logits.float().cpu()]
+    for i in range(steps):
+        logits, cache = decode_step(params, cfg, logits.argmax(-1), S + i, cache)
+        out.append(logits.float().cpu())
+    return out
+
+
+def phase_serve_archs(device, smi: str, seed: int) -> dict:
+    """Phase 11d: each of the ten architectures at .scaled(), the port's own
+    weights drawn on the CPU and moved to the card: prefill logits and 4
+    greedy decode steps on the card against the CPU, within the reference's
+    own tolerances (0.05; 0.15 for the ssm and hybrid families), since the
+    card sums bf16 products in another order than the CPU."""
+    import torch
+
+    from repro_torch.configs import ARCHS, get_config
+    from repro_torch.models import init_params
+
+    out = {}
+    for arch in sorted(ARCHS):
+        cfg = get_config(arch)
+        cfg = cfg.scaled(capacity_factor=100.0) if cfg.n_experts else cfg.scaled()
+        g = torch.Generator().manual_seed(seed)
+        params = init_params(cfg, g, "cpu")
+        batch = {"tokens": torch.randint(0, cfg.vocab, (2, 16), generator=g)}
+        if cfg.stub_frontend == "vit":
+            batch["img"] = torch.randn((2, cfg.n_img_tokens, cfg.d_model), generator=g).to(torch.bfloat16)
+        if cfg.enc_layers:
+            batch["frames"] = torch.randn((2, cfg.enc_seq, cfg.d_model), generator=g).to(torch.bfloat16)
+        tol = 0.15 if ("ssm" in cfg.pattern or "rglru" in cfg.pattern) else 0.05
+        card = scaled_serve(cfg, params, batch, device, SERVE_ARCH_STEPS)
+        host = scaled_serve(cfg, params, batch, "cpu", SERVE_ARCH_STEPS)
+        diffs = [float((a - b).abs().max()) for a, b in zip(card, host)]
+        check(all(bool(torch.isfinite(a).all()) for a in card), f"11d {arch}: non-finite logits on the card")
+        check(max(diffs) < tol, f"11d {arch}: card vs cpu logits {diffs} (tolerance {tol})")
+        out[arch] = {"family": cfg.family, "max_diff": max(diffs), "tol": tol}
+    say(f"  11d ten architectures at .scaled(), card vs cpu ({smi}): prefill + {SERVE_ARCH_STEPS} decode steps, max "
+        f"|logit difference| " + ", ".join(f"{a} {r['max_diff']:.4f} (< {r['tol']})" for a, r in out.items()))
+    return out
+
+
+def phase_serve(device, smi: str, seed: int) -> dict:
+    """Phase 11: the LM serving path on the card."""
+    t11 = time.perf_counter()
+    say(f"phase 11 ({smi}): serving (repro_torch.launch.serve, repro_torch.models) on {device}")
+    out = {"entry": phase_serve_entry(device, smi)}
+    out["paging"], paged = phase_serve_paging(device, smi, seed)
+    out["daemon"] = phase_serve_daemon(device, smi, paged)
+    del paged
+    out["archs"] = phase_serve_archs(device, smi, seed)
+    out["wall_s"] = time.perf_counter() - t11
+    say(f"phase 11 took {out['wall_s']:.1f} s")
     return out
 
 
@@ -2024,11 +2375,17 @@ def main() -> int:
     # 10. the compressd service
     results["compressd"] = phase_compressd(x, bufs["main"], results["paths"]["main"], results["checkpoint"], xs, smi,
                                            args.seed)
-    results["wall_s"] = time.perf_counter() - t_start
-    say(f"the script took {results['wall_s']:.1f} s from its start (build included)")
     for k in kernels:
         k["launches_by_path"]["compressd"] = results["compressd"]["field"]["launches"][k["name"]]
         k["launches_by_path"]["grad_packer"] = results["compressd"]["grad_packer"]["launches"][k["name"]]
+
+    # 11. serving
+    results["serve"] = phase_serve(device, smi, args.seed)
+    results["wall_s"] = time.perf_counter() - t_start
+    say(f"the script took {results['wall_s']:.1f} s from its start (build included)")
+    for k in kernels:
+        k["launches_by_path"]["serve"] = results["serve"]["entry"]["launches"][k["name"]]
+        k["launches_by_path"]["serve_kv"] = results["serve"]["paging"]["launches"][k["name"]]
     if args.out:
         out = pathlib.Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)

@@ -41,9 +41,6 @@ inside.
 """
 from __future__ import annotations
 
-import collections
-import copy
-import dataclasses
 import json
 import os
 import pathlib
@@ -60,6 +57,7 @@ from torch.profiler import record_function as span
 from ..core.compressor import DEVICE_ERRORS
 from ..core.errors import CheckpointDamageError
 from ..core.retry import retry_call
+from ..core.tree import leaf_paths, tree_map
 from .codec import _as_leaf, _device, _nbytes, _torch_dtype, decode_tensor, encode_tensor_to
 
 _MANIFEST = "manifest.json"
@@ -90,61 +88,6 @@ def _sweep_stale_tmp(directory: pathlib.Path) -> list[str]:
     return removed
 
 
-# ------------------------------------------------------------------- trees
-def _children(node):
-    """``[(key, child), ...]`` of a container node in ``jax.tree_util``'s
-    order, ``[]`` for ``None``, or ``None`` for a leaf."""
-    if node is None:
-        return []
-    if isinstance(node, dict):
-        keys = list(node) if isinstance(node, collections.OrderedDict) else sorted(node)
-        return [(k, node[k]) for k in keys]
-    if isinstance(node, tuple) and hasattr(node, "_fields"):  # namedtuple
-        return list(zip(node._fields, node))
-    if isinstance(node, (list, tuple)):
-        return list(enumerate(node))
-    if dataclasses.is_dataclass(node) and not isinstance(node, type):
-        return [(f.name, getattr(node, f.name)) for f in dataclasses.fields(node)]
-    return None
-
-
-def _leaf_paths(tree) -> list[tuple[str, object]]:
-    """``(name, leaf)`` of every leaf, the name its key path joined by ``_``."""
-    out = []
-
-    def walk(node, path):
-        kids = _children(node)
-        if kids is None:
-            out.append(("_".join(str(k) for k in path), node))
-            return
-        for k, child in kids:
-            walk(child, path + (k,))
-
-    walk(tree, ())
-    return out
-
-
-def _tree_map(fn, tree):
-    """``tree`` with every leaf replaced by ``fn(leaf)``, called in
-    :func:`_leaf_paths`'s order."""
-    kids = _children(tree)
-    if kids is None:
-        return fn(tree)
-    if tree is None:
-        return None
-    mapped = [(k, _tree_map(fn, child)) for k, child in kids]
-    if isinstance(tree, dict):
-        return (collections.OrderedDict if isinstance(tree, collections.OrderedDict) else dict)(mapped)
-    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(*(v for _, v in mapped))
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(v for _, v in mapped)
-    new = copy.copy(tree)  # a dataclass: its fields replaced, frozen or not
-    for k, v in mapped:
-        object.__setattr__(new, k, v)
-    return new
-
-
 # -------------------------------------------------------------------- save
 def save(tree, directory: str | os.PathLike, step: int, *, eb: float = 0.0, device=None) -> dict:
     """Synchronous atomic save. Returns the manifest. ``device``: where the
@@ -164,7 +107,7 @@ def save(tree, directory: str | os.PathLike, step: int, *, eb: float = 0.0, devi
         with span("checkpoint.save"):
             manifest = {"step": int(step), "leaves": {}, "format": 2}
             raw_total = comp_total = 0
-            for key, leaf in _leaf_paths(tree):
+            for key, leaf in leaf_paths(tree):
                 arr = _as_leaf(leaf)
                 fn = f"{key}.bin"
                 # error-bounded leaves stream v3 frames into the file as each chunk
@@ -286,7 +229,7 @@ def restore(tree_like, directory: str | os.PathLike, step: int | None = None, *,
     salvage = {"damaged": {}, "fallback_steps": {}, "lost": []}
     leaves = []
     with span("checkpoint.restore"):
-        for key, tmpl in _leaf_paths(tree_like):
+        for key, tmpl in leaf_paths(tree_like):
             meta = manifest["leaves"][key]
             try:
                 arr = _load_leaf(d, meta, dev)
@@ -315,7 +258,7 @@ def restore(tree_like, directory: str | os.PathLike, step: int | None = None, *,
     if salvage["damaged"]:
         manifest = dict(manifest, salvage=salvage)
     it = iter(leaves)
-    return _tree_map(lambda _: next(it), tree_like), manifest
+    return tree_map(lambda _: next(it), tree_like), manifest
 
 
 # ------------------------------------------------------------------- async
@@ -339,7 +282,7 @@ def _snapshot(tree):
             return leaf.clone()
         return np.array(leaf)
 
-    snapped = _tree_map(snap, tree)
+    snapped = tree_map(snap, tree)
     ready = []
     for d in cards:
         ev = torch.cuda.Event()

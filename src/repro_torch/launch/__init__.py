@@ -1,8 +1,11 @@
-"""repro_torch.launch — the port's services.
+"""repro_torch.launch — the port's services and drivers.
 
     python -m repro_torch.launch.compressd --addr 127.0.0.1:7733 --workers 4
+    python -m repro_torch.launch.serve --kv-compress [--compressd ADDR] [--device cpu]
 
 :mod:`.compressd` is the compression daemon and its client, speaking the
 JAX package's CPD1 protocol, so either package's client talks to either
-package's daemon. Importing this package starts nothing.
+package's daemon. :mod:`.serve` is the batched serving driver (prefill,
+greedy decode) with the KV cache paged through the compressor. Importing
+this package starts nothing.
 """

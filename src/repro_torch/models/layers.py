@@ -1,0 +1,402 @@
+"""Shared transformer layers: RMSNorm, RoPE, GQA attention (global/local,
+train/prefill/decode), dense MLP, MoE FFN (sort-based dispatch).
+
+All functions are pure on plain dicts of tensors created by the matching
+init_* functions, with the JAX package's keys (``repro.models.layers``).
+Parameters are fp32 masters, each cast to bf16 at its matmul; compute
+dtype is bf16. The products that the JAX package accumulates with
+``preferred_element_type=float32`` (attention scores, the logits head)
+take their bf16 operands up to float32 and multiply in float32: products
+of two bf16 values are exact there, so only the summation order differs.
+Importing this module turns TF32 off for matmuls, as the predictor does.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from ..configs.base import ModelConfig
+
+# TF32 keeps ~3 decimal digits; the float32 products above must stay float32
+torch.backends.cuda.matmul.allow_tf32 = False
+
+CDTYPE = torch.bfloat16
+NEG = -1e30  # the reference's mask value
+
+
+def _dense_init(gen: torch.Generator, shape, scale=None, *, lead=()):
+    """N(0, scale^2) float32 of ``lead + shape`` on the generator's device;
+    ``scale`` defaults to 1/sqrt(shape[0]) (``lead`` stacks layers, as
+    ``jax.vmap`` of the JAX init does)."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(shape[0])
+    return torch.randn(tuple(lead) + tuple(shape), generator=gen, device=gen.device, dtype=torch.float32).mul_(scale)
+
+
+def _zeros(gen: torch.Generator, shape, *, lead=()):
+    return torch.zeros(tuple(lead) + tuple(shape), device=gen.device, dtype=torch.float32)
+
+
+def _w(p: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """The fp32 master ``p`` cast to ``like``'s dtype for its matmul."""
+    return p.to(like.dtype)
+
+
+def _mm32(spec: str, *ops: torch.Tensor) -> torch.Tensor:
+    """einsum with float32 operands and output (the reference's
+    ``preferred_element_type=jnp.float32`` on bf16 operands)."""
+    return torch.einsum(spec, *(o.float() for o in ops))
+
+
+def _scalar(x: torch.Tensor, value: float) -> torch.Tensor:
+    """``value`` as a 0-d tensor of ``x``'s dtype: JAX rounds a Python
+    float to a bf16 operand's dtype before it multiplies."""
+    return torch.tensor(value, dtype=x.dtype, device=x.device)
+
+
+# ---------------------------------------------------------------- activations
+# JAX evaluates these as compositions of elementwise ops, each rounded to
+# the operand's dtype (bf16 here); torch's fused versions round once, so
+# the port spells out the same compositions.
+def sigmoid(x):
+    """``jax.nn.sigmoid`` (``lax.logistic``): 1 / (1 + exp(-x)) op by op."""
+    return torch.reciprocal(1.0 + torch.exp(-x))
+
+
+def silu(x):
+    """``jax.nn.silu``: x * sigmoid(x)."""
+    return x * sigmoid(x)
+
+
+def gelu(x):
+    """``jax.nn.gelu`` (its default tanh approximation), with JAX's
+    constants rounded to ``x``'s dtype."""
+    cdf = 0.5 * (1.0 + torch.tanh(_scalar(x, math.sqrt(2 / math.pi)) * (x + _scalar(x, 0.044715) * (x * x * x))))
+    return x * cdf
+
+
+def rms_norm(x, scale, eps=1e-6):
+    x32 = x.float()
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    return ((x32 * torch.rsqrt(var + eps)) * (1.0 + scale.float())).to(x.dtype)
+
+
+# ---------------------------------------------------------------- RoPE
+def rope(x, positions, theta):
+    """x: (..., S, H, dh); positions: (..., S)."""
+    dh = x.shape[-1]
+    half = dh // 2
+    freq = torch.pow(torch.tensor(1.0 / theta, dtype=torch.float32, device=x.device),
+                     torch.arange(half, dtype=torch.float32, device=x.device) / half)
+    ang = positions[..., :, None, None].float() * freq  # (..., S, 1, half)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+# ---------------------------------------------------------------- attention
+def init_attention(gen, cfg: ModelConfig, *, lead=()):
+    d, H, Hk, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    p = {
+        "wq": _dense_init(gen, (d, H * dh), lead=lead),
+        "wk": _dense_init(gen, (d, Hk * dh), lead=lead),
+        "wv": _dense_init(gen, (d, Hk * dh), lead=lead),
+        "wo": _dense_init(gen, (H * dh, d), lead=lead),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = _zeros(gen, (H * dh,), lead=lead)
+        p["bk"] = _zeros(gen, (Hk * dh,), lead=lead)
+        p["bv"] = _zeros(gen, (Hk * dh,), lead=lead)
+    return p
+
+
+def _qkv(x, p, cfg: ModelConfig, positions, use_rope=True):
+    B, S, _ = x.shape
+    H, Hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    q = (x @ _w(p["wq"], x)).reshape(B, S, H, dh)
+    k = (x @ _w(p["wk"], x)).reshape(B, S, Hk, dh)
+    v = (x @ _w(p["wv"], x)).reshape(B, S, Hk, dh)
+    if "bq" in p:
+        q = q + _w(p["bq"], x).reshape(H, dh)
+        k = k + _w(p["bk"], x).reshape(Hk, dh)
+        v = v + _w(p["bv"], x).reshape(Hk, dh)
+    if use_rope:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _gqa_scores(q, k, cfg):
+    """q: (B,S,H,dh), k: (B,T,Hk,dh) -> (B,Hk,G,S,T) fp32, no repeated KV."""
+    B, S, H, dh = q.shape
+    Hk = k.shape[2]
+    G = H // Hk
+    qg = q.reshape(B, S, Hk, G, dh)
+    return _mm32("bskgd,btkd->bkgst", qg, k) / math.sqrt(dh)
+
+
+def _gqa_out(probs, v, cfg):
+    """probs: (B,Hk,G,S,T); v: (B,T,Hk,dh) -> (B,S,H*dh)."""
+    B, Hk, G, S, T = probs.shape
+    o = torch.einsum("bkgst,btkd->bskgd", probs.to(v.dtype), v)
+    return o.reshape(B, S, Hk * G * v.shape[-1])
+
+
+def _mask(kind, qi, ki, window):
+    """Which keys ``ki`` each query ``qi`` sees: attn (causal), local
+    (causal within the window) or bidir (all)."""
+    if kind == "local":
+        return (ki <= qi) & (qi - ki < window)
+    if kind == "attn":
+        return ki <= qi
+    return torch.ones_like(ki <= qi)
+
+
+def _attn_full(q, k, v, cfg, kind):
+    """Naive full-scores attention (exact reference; attn_chunk=0)."""
+    S, T = q.shape[1], k.shape[1]
+    scores = _gqa_scores(q, k, cfg)
+    qi = torch.arange(S, device=q.device)[:, None]
+    ki = torch.arange(T, device=q.device)[None, :]
+    scores = torch.where(_mask(kind, qi, ki, cfg.window)[None, None, None], scores, NEG)
+    return _gqa_out(torch.softmax(scores, dim=-1), v, cfg)
+
+
+def _attn_blockwise(q, k, v, cfg, kind):
+    """Flash-style blockwise attention (exact online softmax).
+
+    Tiles both the query and KV axes with cfg.attn_chunk; statically skips
+    fully-masked tiles (so local-attention FLOPs really are O(S*window)).
+    """
+    B, S, H, dh = q.shape
+    T = k.shape[1]
+    Hk = k.shape[2]
+    G = H // Hk
+    C = cfg.attn_chunk
+    Cq, Ck = min(C, S), min(C, T)
+    if S % Cq or T % Ck:  # fall back on exact full path for ragged shapes
+        return _attn_full(q, k, v, cfg, kind)
+    qg = q.reshape(B, S, Hk, G, dh)
+    scale = 1.0 / math.sqrt(dh)
+    outs = []
+    for q0 in range(0, S, Cq):
+        qc = qg[:, q0 : q0 + Cq]
+        m = torch.full((B, Hk, G, Cq), NEG, dtype=torch.float32, device=q.device)
+        den = torch.zeros((B, Hk, G, Cq), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((B, Hk, G, Cq, dh), dtype=torch.float32, device=q.device)
+        qi = q0 + torch.arange(Cq, device=q.device)[:, None]
+        for k0 in range(0, T, Ck):
+            # static tile skipping: causal/local windows never look ahead,
+            # local never looks further back than the window
+            if kind in ("attn", "local") and k0 > q0 + Cq - 1:
+                continue
+            if kind == "local" and k0 + Ck - 1 < q0 - cfg.window + 1:
+                continue
+            kc, vc = k[:, k0 : k0 + Ck], v[:, k0 : k0 + Ck]
+            s = _mm32("bskgd,btkd->bkgst", qc, kc) * scale
+            ki = k0 + torch.arange(kc.shape[1], device=q.device)[None, :]
+            s = torch.where(_mask(kind, qi, ki, cfg.window)[None, None, None], s, NEG)
+            m_new = torch.maximum(m, s.amax(-1))
+            pt = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            den = den * corr + pt.sum(-1)
+            acc = acc * corr[..., None] + torch.einsum("bkgst,btkd->bkgsd", pt.to(vc.dtype), vc)
+            m = m_new
+        o = acc / torch.clamp(den[..., None], min=1e-30)  # (B,Hk,G,Cq,dh)
+        outs.append(o.permute(0, 3, 1, 2, 4).reshape(B, Cq, H * dh))
+    return torch.cat(outs, dim=1).to(q.dtype)
+
+
+def _attn_core(q, k, v, cfg, kind):
+    if cfg.attn_chunk and max(q.shape[1], k.shape[1]) > cfg.attn_chunk:
+        return _attn_blockwise(q, k, v, cfg, kind)
+    return _attn_full(q, k, v, cfg, kind)
+
+
+def attention(x, p, cfg: ModelConfig, *, kind="attn", positions=None, memory=None):
+    """Full-sequence attention. kind: attn|local|cross|bidir."""
+    B, S, _ = x.shape
+    if positions is None:
+        positions = torch.arange(S, device=x.device)[None, :]
+    if kind == "cross":
+        q = (x @ _w(p["wq"], x)).reshape(B, S, cfg.n_heads, cfg.d_head)
+        T = memory.shape[1]
+        k = (memory @ _w(p["wk"], x)).reshape(B, T, cfg.n_kv_heads, cfg.d_head)
+        v = (memory @ _w(p["wv"], x)).reshape(B, T, cfg.n_kv_heads, cfg.d_head)
+        return _attn_core(q, k, v, cfg, "bidir") @ _w(p["wo"], x)
+    q, k, v = _qkv(x, p, cfg, positions)
+    return _attn_core(q, k, v, cfg, kind) @ _w(p["wo"], x)
+
+
+def attention_prefill(x, p, cfg: ModelConfig, *, kind="attn", cache_len=None):
+    """Like attention() but also returns the KV cache (capacity cache_len)."""
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device)[None, :]
+    q, k, v = _qkv(x, p, cfg, positions)
+    out = _attn_core(q, k, v, cfg, kind) @ _w(p["wo"], x)
+    C = cache_len or S
+    if kind == "local":
+        C = min(C, cfg.window)
+    if C >= S:
+        kc, vc = F.pad(k, (0, 0, 0, 0, 0, C - S)), F.pad(v, (0, 0, 0, 0, 0, C - S))
+    else:  # keep last C entries (ring base 0 when S % C == 0)
+        kc, vc = k[:, S - C :], v[:, S - C :]
+    return out, {"k": kc, "v": vc}
+
+
+def _kv_dequant(kq, scale, dtype):
+    """int8 (B,C,Hk,dh) + per-(B,C,Hk) scale -> dtype."""
+    return (kq.float() * scale[..., None]).to(dtype)
+
+
+def _kv_quant(k):
+    """Error-bounded int8 KV quantization: per-(token, head) scale,
+    |err| <= scale/2 = max|k|/254 — the paper's quantizer at fixed rate,
+    halving decode HBM traffic (KV is read every step, written once)."""
+    k32 = k.float()
+    scale = torch.clamp(k32.abs().amax(dim=-1), min=1e-30) / 127.0
+    q = torch.clamp(torch.round(k32 / scale[..., None]), -127, 127).to(torch.int8)
+    return q, scale.float()
+
+
+def _slot_write(buf, value, slot):
+    """``buf[:, slot] = value`` in place, with ``lax.dynamic_update_slice``'s
+    start clamped so the one-slot update stays inside ``buf``."""
+    s = max(0, min(int(slot), buf.shape[1] - value.shape[1]))
+    buf[:, s : s + value.shape[1]] = value.to(buf.dtype)
+    return buf
+
+
+def attention_decode(x1, p, cfg: ModelConfig, cache, pos, *, kind="attn", memory=None):
+    """x1: (B,1,d); cache {'k','v'}: (B,C,Hk,dh); pos: int index of the new token.
+
+    Global attn: slot = pos (capacity >= seq_len). Local: ring slot = pos % window.
+    With cfg.kv_quant the cache leaves are int8 + scales. The cache's
+    tensors are updated in place (the JAX package donates them). Returns
+    (out, new_cache).
+    """
+    B = x1.shape[0]
+    H, Hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    pos = int(pos)
+    if kind == "cross":
+        q = (x1 @ _w(p["wq"], x1)).reshape(B, 1, H, dh)
+        probs = torch.softmax(_gqa_scores(q, cache["k"], cfg), dim=-1)
+        return _gqa_out(probs, cache["v"], cfg) @ _w(p["wo"], x1), cache
+    positions = torch.full((B, 1), pos, dtype=torch.int32, device=x1.device)
+    q, k1, v1 = _qkv(x1, p, cfg, positions)
+    C = cache["k"].shape[1]
+    slot = pos % C if kind == "local" else pos
+    idx = torch.arange(C, device=x1.device)
+    if kind == "local":
+        valid = (idx <= slot) | (pos >= C)  # ring: all slots valid once warm
+    else:
+        valid = idx <= pos
+    if cfg.kv_quant:
+        k1q, k1s = _kv_quant(k1)
+        v1q, v1s = _kv_quant(v1)
+        kc = _slot_write(cache["k"], k1q, slot)
+        vc = _slot_write(cache["v"], v1q, slot)
+        ks = _slot_write(cache["k_scale"], k1s, slot)
+        vs = _slot_write(cache["v_scale"], v1s, slot)
+        new_cache = {"k": kc, "v": vc, "k_scale": ks, "v_scale": vs}
+        kc, vc = _kv_dequant(kc, ks, x1.dtype), _kv_dequant(vc, vs, x1.dtype)
+    else:
+        kc = _slot_write(cache["k"], k1, slot)
+        vc = _slot_write(cache["v"], v1, slot)
+        new_cache = {"k": kc, "v": vc}
+    scores = _gqa_scores(q, kc, cfg)  # (B,Hk,G,1,C)
+    scores = torch.where(valid[None, None, None, None, :], scores, NEG)
+    probs = torch.softmax(scores, dim=-1)
+    out = _gqa_out(probs, vc, cfg) @ _w(p["wo"], x1)
+    return out, new_cache
+
+
+# ---------------------------------------------------------------- MLP
+def init_mlp(gen, cfg: ModelConfig, d_ff=None, *, lead=()):
+    d, ff = cfg.d_model, d_ff or cfg.d_ff
+    if cfg.act == "silu":  # llama-style gated
+        return {"w1": _dense_init(gen, (d, ff), lead=lead), "w3": _dense_init(gen, (d, ff), lead=lead),
+                "w2": _dense_init(gen, (ff, d), lead=lead)}
+    return {"w1": _dense_init(gen, (d, ff), lead=lead), "w2": _dense_init(gen, (ff, d), lead=lead)}
+
+
+def mlp(x, p, cfg: ModelConfig):
+    h = x @ _w(p["w1"], x)
+    if "w3" in p:
+        h = silu(h) * (x @ _w(p["w3"], x))
+    else:
+        h = gelu(h)
+    return h @ _w(p["w2"], x)
+
+
+# ---------------------------------------------------------------- MoE
+def init_moe(gen, cfg: ModelConfig, *, lead=()):
+    d, E, f = cfg.d_model, cfg.n_experts, cfg.d_expert
+    p = {
+        "router": _dense_init(gen, (d, E), scale=0.02, lead=lead),
+        "w1": _dense_init(gen, (E, d, f), lead=lead),
+        "w3": _dense_init(gen, (E, d, f), lead=lead),
+        "w2": _dense_init(gen, (E, f, d), lead=lead),
+    }
+    if cfg.n_shared:
+        p["shared"] = init_mlp(gen, cfg, d_ff=cfg.n_shared * cfg.d_expert, lead=lead)
+    return p
+
+
+def _top_k(probs, K):
+    """``lax.top_k``: the K largest along the last axis, the lower index
+    first among equal values (a stable descending sort)."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :K], idx[..., :K]
+
+
+def _moe_local(x, p, cfg: ModelConfig, model_axis=None):
+    """Token-choice top-k with capacity on one device. x: (B,S,d).
+
+    Every token's k choices are sorted by expert (stably), ranked within
+    their expert, and rows ranked at or past the capacity C are dropped.
+    Returns (y, aux_loss). The expert-sharded forms of the JAX package
+    (``model_axis``) wait for the port's device mesh.
+    """
+    if model_axis is not None:
+        raise NotImplementedError("the port's MoE runs on one device; the mesh forms are not ported")
+    B, S, d = x.shape
+    E, K = cfg.n_experts, cfg.top_k
+    T = B * S
+    xt = x.reshape(T, d)
+    logits = (xt @ _w(p["router"], x)).float()
+    probs = torch.softmax(logits, dim=-1)
+    gates, eidx = _top_k(probs, K)  # (T,K)
+    gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+    # capacity: cf-limited at scale, lossless for tiny token counts (decode)
+    C = int(min(T * K, max(math.ceil(T * K / E * cfg.capacity_factor), 8)))
+    ef = eidx.reshape(-1)  # (T*K,)
+    gf = gates.reshape(-1)
+    tf_ = torch.arange(T, device=x.device).repeat_interleave(K)
+    order = torch.argsort(ef, stable=True)
+    es, gs, ts = ef[order], gf[order], tf_[order]
+    # rank within expert segment
+    rank = torch.arange(T * K, device=x.device) - torch.searchsorted(es, es, side="left")
+    keep = rank < C
+    buf = torch.zeros((p["w1"].shape[0], C, d), dtype=x.dtype, device=x.device)
+    buf[es[keep], rank[keep]] = xt[ts[keep]]  # .at[...].set(mode="drop")
+    h = torch.einsum("ecd,edf->ecf", buf, _w(p["w1"], x))
+    h = silu(h) * torch.einsum("ecd,edf->ecf", buf, _w(p["w3"], x))
+    out_e = torch.einsum("ecf,efd->ecd", h, _w(p["w2"], x))
+    contrib = out_e[es, rank % C] * gs[:, None].to(x.dtype) * keep[:, None]
+    y = torch.zeros((T, d), dtype=x.dtype, device=x.device).index_add_(0, ts, contrib)
+    # switch-style load-balance aux loss
+    frac = torch.zeros(E, dtype=torch.float32, device=x.device).index_add_(
+        0, ef, torch.ones_like(ef, dtype=torch.float32)) / (T * K)
+    imp = probs.mean(0)
+    aux = E * torch.sum(frac * imp)
+    # shared experts (deepseek): dense path
+    if "shared" in p:
+        y = y + mlp(xt[None], p["shared"], cfg)[0]
+    return y.reshape(B, S, d), aux
+
+
+def moe_ffn(x, p, cfg: ModelConfig):
+    """MoE FFN on one device (the JAX package's path without a mesh)."""
+    return _moe_local(x, p, cfg, None)

@@ -1,0 +1,363 @@
+"""Model assembly: one parameterized stack covering all 10 assigned archs.
+
+Layers are tiled from cfg.pattern and run in *pattern groups*: the
+parameters of each pattern position are stacked over the groups (leaves of
+``[G, ...]``, the JAX package's scanned layout), and a Python loop walks
+the group axis where the JAX package runs ``lax.scan``. Heterogeneous
+patterns (gemma3 5L+1G, recurrentgemma RRL...) put the whole repeating
+unit inside one group. deepseek's dense prefix runs as explicit layers
+before the groups.
+
+Entry points:
+  init_params(cfg, generator, device)  -> params tree
+  forward(params, cfg, batch)          -> (logits, aux)      [eval]
+  prefill(params, cfg, batch)          -> (logits, cache)
+  decode_step(params, cfg, token, pos, cache) -> (logits, cache)
+  init_cache(cfg, batch, seq_len)      -> cache tree         [decode entry state]
+
+Trees are nested dicts and lists of tensors with the JAX package's keys,
+so their leaves flatten in its order (dict keys sorted). ``init_params``
+and ``init_cache`` build on the card unless given ``device="cpu"`` and
+raise where CUDA is absent; the other functions run where their tensors
+are. ``decode_step`` updates the cache's tensors in place.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..configs.base import ModelConfig
+from . import rglru as rg
+from . import ssm as ssm_mod
+from .layers import (
+    CDTYPE,
+    _dense_init,
+    _mm32,
+    _scalar,
+    _zeros,
+    attention,
+    attention_decode,
+    attention_prefill,
+    init_attention,
+    init_mlp,
+    init_moe,
+    mlp,
+    moe_ffn,
+    rms_norm,
+)
+
+
+def model_device(device=None) -> torch.device:
+    """Where a model is built: the card unless ``device`` says otherwise."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; the models run on the card unless given device='cpu'")
+    return dev
+
+
+# ------------------------------------------------------------------ helpers
+def _slice(tree, g: int):
+    """Group ``g`` of a tree of ``[G, ...]`` leaves (views)."""
+    if isinstance(tree, dict):
+        return {k: _slice(v, g) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_slice(v, g) for v in tree)
+    return tree[g]
+
+
+def _stack(trees: list):
+    """The inverse of :func:`_slice`: one tree of leaves stacked over ``trees``."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stack([t[k] for t in trees]) for k in first}
+    if isinstance(first, (list, tuple)):
+        return type(first)(_stack([t[i] for t in trees]) for i in range(len(first)))
+    return torch.stack(trees)
+
+
+def _layer_kinds(cfg: ModelConfig):
+    """(kind, is_moe) per scanned pattern position."""
+    out = []
+    for k in cfg.pattern:
+        is_moe = cfg.n_experts > 0 and k in ("attn", "local")
+        out.append((k, is_moe))
+    return tuple(out)
+
+
+def _d(x):
+    return x.to(CDTYPE)
+
+
+# ------------------------------------------------------------------ init
+def init_block(gen, cfg: ModelConfig, kind: str, *, moe: bool, cross: bool = False, dense_ff: int | None = None,
+               lead=()):
+    p: dict = {"ln1": _zeros(gen, (cfg.d_model,), lead=lead)}
+    if kind in ("attn", "local", "bidir"):
+        p["attn"] = init_attention(gen, cfg, lead=lead)
+    elif kind == "ssm":
+        p["ssm"] = ssm_mod.init_ssm(gen, cfg, lead=lead)
+    elif kind == "rglru":
+        p["rglru"] = rg.init_rglru(gen, cfg, lead=lead)
+    else:
+        raise ValueError(kind)
+    if cross:
+        p["ln_x"] = _zeros(gen, (cfg.d_model,), lead=lead)
+        p["cross"] = init_attention(gen, cfg, lead=lead)
+    if kind != "ssm" and (cfg.d_ff > 0 or moe):
+        p["ln2"] = _zeros(gen, (cfg.d_model,), lead=lead)
+        p["moe" if moe else "mlp"] = init_moe(gen, cfg, lead=lead) if moe else init_mlp(gen, cfg, dense_ff, lead=lead)
+    return p
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator | None = None, device=None) -> dict:
+    """Random fp32 parameters with the JAX package's tree, drawn from
+    ``generator`` (seed 0 on ``device`` when None; it must live on
+    ``device``). The values differ from ``jax.random``'s draws."""
+    dev = model_device(device)
+    gen = torch.Generator(device=dev).manual_seed(0) if generator is None else generator
+    if gen.device.type != dev.type:
+        raise ValueError(f"the generator lives on {gen.device}, the parameters on {dev}")
+    params: dict = {
+        "embed": _dense_init(gen, (cfg.vocab, cfg.d_model), scale=0.02),
+        "final_norm": _zeros(gen, (cfg.d_model,)),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = _dense_init(gen, (cfg.d_model, cfg.vocab), scale=0.02)
+    cross = cfg.enc_layers > 0
+    # dense prefix (deepseek first_dense)
+    prefix = [init_block(gen, cfg, "attn", moe=False, cross=cross, dense_ff=cfg.d_ff) for _ in range(cfg.first_dense)]
+    if prefix:
+        params["prefix"] = prefix
+    # pattern groups: each position's leaves stacked over the G groups
+    G = cfg.n_groups
+    params["stack"] = [init_block(gen, cfg, kind, moe=moe, cross=cross, lead=(G,)) for kind, moe in _layer_kinds(cfg)]
+    if cfg.enc_layers:  # whisper encoder
+        params["enc_stack"] = [init_block(gen, cfg, "bidir", moe=False, lead=(cfg.enc_layers,))]
+        params["enc_norm"] = _zeros(gen, (cfg.d_model,))
+    return params
+
+
+# ------------------------------------------------------------------ blocks
+def block_apply(x, p, cfg: ModelConfig, kind: str, moe: bool, memory=None):
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    if kind in ("attn", "local", "bidir"):
+        m = attention(h, p["attn"], cfg, kind=kind)
+    elif kind == "ssm":
+        m = ssm_mod.ssm_block(h, p["ssm"], cfg)
+    else:
+        m = rg.rglru_block(h, p["rglru"], cfg)
+    x = x + m
+    if "cross" in p and memory is not None:
+        h = rms_norm(x, p["ln_x"], cfg.norm_eps)
+        x = x + attention(h, p["cross"], cfg, kind="cross", memory=memory)
+    if "moe" in p:
+        h = rms_norm(x, p["ln2"], cfg.norm_eps)
+        f, aux = moe_ffn(h, p["moe"], cfg)
+        x = x + f
+    elif "mlp" in p:
+        h = rms_norm(x, p["ln2"], cfg.norm_eps)
+        x = x + mlp(h, p["mlp"], cfg)
+    return x, aux
+
+
+# ------------------------------------------------------------------ forward
+def _embed(params, cfg: ModelConfig, tokens):
+    """``bf16(embed)[tokens] * sqrt(d)`` as the JAX package computes it
+    (the rows are gathered before the cast: the same values, without a
+    bf16 copy of the whole table)."""
+    x = _d(params["embed"][tokens])
+    return x * _scalar(x, math.sqrt(cfg.d_model))
+
+
+def _embed_inputs(params, cfg: ModelConfig, batch):
+    x = _embed(params, cfg, batch["tokens"])
+    if cfg.stub_frontend == "vit" and "img" in batch:
+        x = torch.cat([_d(batch["img"]), x], dim=1)
+    return x
+
+
+def _encode(params, cfg: ModelConfig, frames):
+    """Whisper encoder over stub frame embeddings (B, enc_seq, d)."""
+    x = _d(frames)
+    stacked = params["enc_stack"][0]
+    for g in range(cfg.enc_layers):
+        x, _ = block_apply(x, _slice(stacked, g), cfg, "bidir", False)
+    return rms_norm(x, params["enc_norm"], cfg.norm_eps)
+
+
+def _logits(params, cfg: ModelConfig, x):
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    # bf16 operands, fp32 accumulation (the reference's preferred_element_type)
+    return _mm32("bsd,dv->bsv", x.to(CDTYPE), head.to(CDTYPE))
+
+
+def forward(params, cfg: ModelConfig, batch):
+    """Full-sequence forward. Returns (logits (B,S,V), aux loss scalar)."""
+    memory = _encode(params, cfg, batch["frames"]) if cfg.enc_layers else None
+    x = _embed_inputs(params, cfg, batch)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for p in params.get("prefix", []):
+        x, aux = block_apply(x, p, cfg, "attn", False, memory)
+        aux_total = aux_total + aux
+    kinds = _layer_kinds(cfg)
+    for g in range(cfg.n_groups):
+        slices = _slice(params["stack"], g)
+        for p_i, (kind, moe) in enumerate(kinds):
+            x, aux = block_apply(x, slices[p_i], cfg, kind, moe, memory)
+            aux_total = aux_total + aux
+    return _logits(params, cfg, x), aux_total
+
+
+# ------------------------------------------------------------------ caches
+def init_cache(cfg: ModelConfig, batch: int, seq_len: int, dtype=CDTYPE, device=None):
+    """Decode-entry cache: capacity seq_len KV (window for local), states for
+    ssm/rglru, precomputed cross-attn KV for enc-dec. Zeros on the card
+    unless given ``device="cpu"``."""
+    dev = model_device(device)
+    Hk, dh = cfg.n_kv_heads, cfg.d_head
+    G = cfg.n_groups
+
+    def zeros(shape, dt, lead):
+        return torch.zeros(tuple(lead) + tuple(shape), dtype=dt, device=dev)
+
+    def kv(C, lead):
+        if cfg.kv_quant:
+            return {
+                "k": zeros((batch, C, Hk, dh), torch.int8, lead),
+                "v": zeros((batch, C, Hk, dh), torch.int8, lead),
+                "k_scale": zeros((batch, C, Hk), torch.float32, lead),
+                "v_scale": zeros((batch, C, Hk), torch.float32, lead),
+            }
+        return {"k": zeros((batch, C, Hk, dh), dtype, lead), "v": zeros((batch, C, Hk, dh), dtype, lead)}
+
+    def one(kind, lead=()):
+        if kind == "attn":
+            c = kv(seq_len, lead)
+        elif kind == "local":
+            c = kv(min(cfg.window, seq_len), lead)
+        elif kind == "ssm":
+            c = ssm_mod.ssm_init_cache(cfg, batch, dtype, device=dev, lead=lead)
+        else:
+            c = rg.rglru_init_cache(cfg, batch, dtype, device=dev, lead=lead)
+        if cfg.enc_layers:
+            c = dict(c, xk=zeros((batch, cfg.enc_seq, Hk, dh), dtype, lead),
+                     xv=zeros((batch, cfg.enc_seq, Hk, dh), dtype, lead))
+        return c
+
+    cache = {"stack": [one(kind, (G,)) for kind, _ in _layer_kinds(cfg)]}
+    if cfg.first_dense:
+        cache["prefix"] = [one("attn") for _ in range(cfg.first_dense)]
+    return cache
+
+
+def _block_decode(x1, p, cfg, kind, cache, pos):
+    h = rms_norm(x1, p["ln1"], cfg.norm_eps)
+    if kind in ("attn", "local"):
+        m, new = attention_decode(h, p["attn"], cfg, cache, pos, kind=kind)
+    elif kind == "ssm":
+        m, new = ssm_mod.ssm_decode(h, p["ssm"], cfg, {"state": cache["state"], "conv": cache["conv"]})
+    else:
+        m, new = rg.rglru_decode(h, p["rglru"], cfg, {"h": cache["h"], "conv": cache["conv"]})
+    new_cache = dict(cache, **new)
+    x1 = x1 + m
+    if "cross" in p:
+        h = rms_norm(x1, p["ln_x"], cfg.norm_eps)
+        m, _ = attention_decode(h, p["cross"], cfg, {"k": cache["xk"], "v": cache["xv"]}, pos, kind="cross")
+        x1 = x1 + m
+    if "moe" in p:
+        h = rms_norm(x1, p["ln2"], cfg.norm_eps)
+        f, _ = moe_ffn(h, p["moe"], cfg)
+        x1 = x1 + f
+    elif "mlp" in p:
+        h = rms_norm(x1, p["ln2"], cfg.norm_eps)
+        x1 = x1 + mlp(h, p["mlp"], cfg)
+    return x1, new_cache
+
+
+def _write_back(stacked, group, new):
+    """Copy group ``g``'s new leaves into the stacked cache where a leaf is
+    a new tensor (the recurrent states); attention leaves were updated in
+    place through their views."""
+    for k, v in new.items():
+        if stacked[k][group].data_ptr() != v.data_ptr():
+            stacked[k][group].copy_(v)
+
+
+def decode_step(params, cfg: ModelConfig, token, pos, cache):
+    """token: (B,) int; pos: int (slot of the new token).
+
+    Returns (logits (B,V), cache): the cache's tensors are updated in
+    place and the same tree is returned."""
+    pos = int(pos)
+    x = _embed(params, cfg, token)[:, None]  # (B,1,d)
+    new_prefix = []
+    for p, c in zip(params.get("prefix", []), cache.get("prefix", [])):
+        x, nc = _block_decode(x, p, cfg, "attn", c, pos)
+        new_prefix.append(nc)
+    kinds = _layer_kinds(cfg)
+    for g in range(cfg.n_groups):
+        pslice = _slice(params["stack"], g)
+        for p_i, (kind, _) in enumerate(kinds):
+            stacked = cache["stack"][p_i]
+            x, nc = _block_decode(x, pslice[p_i], cfg, kind, _slice(stacked, g), pos)
+            _write_back(stacked, g, nc)
+    logits = _logits(params, cfg, x)[:, 0]
+    new_cache = {"stack": list(cache["stack"])}
+    if new_prefix:
+        new_cache["prefix"] = new_prefix
+    return logits, new_cache
+
+
+def prefill(params, cfg: ModelConfig, batch, cache_len: int | None = None):
+    """Run the context once, returning (last-token logits, decode cache)."""
+    memory = _encode(params, cfg, batch["frames"]) if cfg.enc_layers else None
+    x = _embed_inputs(params, cfg, batch)
+    S = x.shape[1]
+    C = cache_len or S
+
+    def block_prefill(x, p, kind):
+        h = rms_norm(x, p["ln1"], cfg.norm_eps)
+        if kind in ("attn", "local"):
+            m, kvc = attention_prefill(h, p["attn"], cfg, kind=kind, cache_len=C)
+        elif kind == "ssm":
+            m, kvc = ssm_mod.ssm_block(h, p["ssm"], cfg, return_cache=True)
+        else:
+            m, kvc = rg.rglru_block(h, p["rglru"], cfg, return_cache=True)
+        x = x + m
+        if "cross" in p and memory is not None:
+            h = rms_norm(x, p["ln_x"], cfg.norm_eps)
+            x = x + attention(h, p["cross"], cfg, kind="cross", memory=memory)
+            B = x.shape[0]
+            kvc = dict(kvc,
+                       xk=(memory @ p["cross"]["wk"].to(x.dtype)).reshape(B, -1, cfg.n_kv_heads, cfg.d_head),
+                       xv=(memory @ p["cross"]["wv"].to(x.dtype)).reshape(B, -1, cfg.n_kv_heads, cfg.d_head))
+        if "moe" in p:
+            h = rms_norm(x, p["ln2"], cfg.norm_eps)
+            f, _ = moe_ffn(h, p["moe"], cfg)
+            x = x + f
+        elif "mlp" in p:
+            h = rms_norm(x, p["ln2"], cfg.norm_eps)
+            x = x + mlp(h, p["mlp"], cfg)
+        return x, kvc
+
+    new_prefix = []
+    for p in params.get("prefix", []):
+        x, c = block_prefill(x, p, "attn")
+        new_prefix.append(c)
+    kinds = _layer_kinds(cfg)
+    groups = []
+    for g in range(cfg.n_groups):
+        pslice = _slice(params["stack"], g)
+        cs = []
+        for p_i, (kind, _) in enumerate(kinds):
+            x, c = block_prefill(x, pslice[p_i], kind)
+            cs.append(c)
+        groups.append(cs)
+    logits = _logits(params, cfg, x[:, -1:])[:, 0]
+    cache = {"stack": _stack(groups)}
+    if new_prefix:
+        cache["prefix"] = new_prefix
+    return logits, cache

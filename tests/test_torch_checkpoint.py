@@ -41,6 +41,7 @@ from repro.testing.faults import FlakyFile
 from repro_torch.checkpoint import codec as tcodec
 from repro_torch.checkpoint import manager as tmanager
 from repro_torch.core import Compressor, CompressorSpec, frames
+from repro_torch.core import tree as ttree
 from repro_torch.core.errors import CheckpointDamageError
 from repro_torch.kernels.build import KernelError
 
@@ -130,7 +131,7 @@ def _np(x):
 
 
 def _leaves(tree):
-    return [leaf for _, leaf in tmanager._leaf_paths(tree)]
+    return [leaf for _, leaf in ttree.leaf_paths(tree)]
 
 
 def _flip(path: pathlib.Path, offset: int | None = None, bit: int = 6):
@@ -145,7 +146,7 @@ def test_leaf_names_are_the_jax_key_paths():
     jpaths = [k for k, _ in jax.tree_util.tree_flatten_with_path(pair.jax)[0]]
     jnames = ["_".join(str(getattr(p, "key", getattr(p, "idx", getattr(p, "name", p)))) for p in path)
               for path in jpaths]
-    assert [k for k, _ in tmanager._leaf_paths(pair.torch)] == jnames
+    assert [k for k, _ in ttree.leaf_paths(pair.torch)] == jnames
     assert jnames == ["alpha_m", "alpha_v", "alpha_step", "bf", "count", "zeta_b_0", "zeta_b_2_a", "zeta_b_2_z",
                       "zeta_w"]
 
@@ -156,9 +157,9 @@ def test_tree_map_rebuilds_every_container_kind():
     Point = collections.namedtuple("Point", "y x")
     tree = {"b": (1, [2, None]), "a": Point(3, 4), "o": collections.OrderedDict([("z", 5), ("a", 6)]),
             "d": OptState(7, 8, 9)}
-    names = [k for k, _ in tmanager._leaf_paths(tree)]
+    names = [k for k, _ in ttree.leaf_paths(tree)]
     assert names == ["a_y", "a_x", "b_0", "b_1_0", "d_m", "d_v", "d_step", "o_z", "o_a"]
-    out = tmanager._tree_map(lambda v: v * 10, tree)
+    out = ttree.tree_map(lambda v: v * 10, tree)
     assert out["a"] == Point(30, 40) and out["b"] == (10, [20, None]) and out["d"] == OptState(70, 80, 90)
     assert list(out["o"].items()) == [("z", 50), ("a", 60)]
     assert tree["d"] == OptState(7, 8, 9)  # the input is left as it was
@@ -176,7 +177,7 @@ def test_phase9_tree_is_whisper_small_at_depth_one():
     spec.loader.exec_module(smoke)
     cfg = dataclasses.replace(CONFIG, n_layers=1, enc_layers=1)
     ref = J.manager._leaf_paths(jax.eval_shape(lambda k: init_params(cfg, k), jax.random.PRNGKey(0)))
-    got = tmanager._leaf_paths(smoke.whisper_small_shapes(**smoke.WHISPER_SMALL))
+    got = ttree.leaf_paths(smoke.whisper_small_shapes(**smoke.WHISPER_SMALL))
     assert [k for k, _ in got] == [k for k, _ in ref]
     assert [tuple(t.shape) for _, t in got] == [tuple(r.shape) for _, r in ref]
     assert all(r.dtype == jnp.float32 for _, r in ref) and all(t.dtype == torch.float32 for _, t in got)
@@ -224,7 +225,7 @@ def test_checkpoints_restore_in_the_other_package(tmp_path, codec):
     own, _ = T.restore(pair.torch, tmp_path / "t", device=CPU)
     w = pair.jax["zeta"]["w"]
     bound = 1e-3 * float(w.max() - w.min()) * (1 + SLACK)
-    for name, ref, a, b, c in zip([k for k, _ in tmanager._leaf_paths(pair.torch)], _leaves(pair.jax),
+    for name, ref, a, b, c in zip([k for k, _ in ttree.leaf_paths(pair.torch)], _leaves(pair.jax),
                                   _leaves(from_jax), _leaves(from_port), _leaves(own)):
         assert isinstance(a, torch.Tensor) and a.device.type == "cpu"
         ref = _np(ref)
@@ -396,7 +397,7 @@ def test_async_snapshot_survives_in_place_update(tmp_path, monkeypatch):
 
     monkeypatch.setattr(tmanager, "save", gated_save)
     tree = _test_tree()
-    ref = tmanager._tree_map(lambda t: t.numpy().copy(), tree)
+    ref = ttree.tree_map(lambda t: t.numpy().copy(), tree)
     saver = T.AsyncCheckpointer(tmp_path, device=CPU)
     saver.submit(tree, 1)
     for leaf in _leaves(tree):  # an optimizer step right after the submit

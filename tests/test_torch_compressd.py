@@ -343,7 +343,13 @@ def test_backpressure_queue_then_shed():
         assert isinstance(results["c"], ServiceOverloadedError)  # shed, typed
         _join(t1, t2)
         assert results["a"]["ok"] and results["b"]["ok"]  # queued b completed
-        st = srv.stats()
+        # a request's budget is released once its response is sent, so the
+        # client may read the stats a moment before the release
+        def released():
+            st = srv.stats()
+            return st if st["queue"]["inflight_bytes"] == 0 else None
+
+        st = _until(released, "the budget to be fully released")
         assert st["queue"]["rejected_overload"] == 1
         assert st["queue"]["inflight_bytes"] == 0  # budget fully released
 

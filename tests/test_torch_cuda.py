@@ -495,3 +495,88 @@ def test_gradient_packer_card_bytes_equal_host_bytes(cuda):
     buf = pack_quantized_sharded(shards, s_card)
     assert buf == pack_quantized_sharded([(ix, t.cpu()) for ix, t in shards], s_host)
     assert np.array_equal(unpack_quantized_sharded(buf)[0], q_host.numpy())
+
+
+SERVE_ARCHS = ["codeqwen1.5-7b", "deepseek-moe-16b", "gemma3-12b", "granite-34b", "internvl2-1b", "mamba2-370m",
+               "olmoe-1b-7b", "recurrentgemma-2b", "whisper-small", "yi-34b"]
+
+
+def _serve_on(device, cfg, params, batch, steps: int):
+    """Prefill logits and ``steps`` greedy decode logits, as host arrays."""
+    from repro_torch.models import decode_step, prefill
+
+    params = _to(params, device)
+    batch = _to(batch, device)
+    S = batch["tokens"].shape[1] + (cfg.n_img_tokens if "img" in batch else 0)
+    logits, cache = prefill(params, cfg, batch, cache_len=S + steps)
+    out = [logits.float().cpu().numpy()]
+    tok = logits.argmax(-1)
+    for i in range(steps):
+        logits, cache = decode_step(params, cfg, tok, S + i, cache)
+        out.append(logits.float().cpu().numpy())
+        tok = logits.argmax(-1)
+    return out
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+@pytest.mark.parametrize("arch", SERVE_ARCHS)
+def test_scaled_architectures_serve_on_the_card_as_on_the_cpu(cuda, arch):
+    """The port's own weights drawn on the CPU and moved to the card:
+    prefill logits and 4 greedy decode steps within the reference's own
+    tolerances (0.05; 0.15 for the ssm and hybrid families), since the
+    card sums bf16 products in another order than the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+
+    cfg = get_config(arch)
+    cfg = cfg.scaled(capacity_factor=100.0) if cfg.n_experts else cfg.scaled()
+    g = torch.Generator().manual_seed(0)
+    params = init_params(cfg, g, "cpu")
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 16), generator=g)}
+    if cfg.stub_frontend == "vit":
+        batch["img"] = torch.randn((2, cfg.n_img_tokens, cfg.d_model), generator=g).to(torch.bfloat16)
+    if cfg.enc_layers:
+        batch["frames"] = torch.randn((2, cfg.enc_seq, cfg.d_model), generator=g).to(torch.bfloat16)
+    tol = 0.15 if ("ssm" in cfg.pattern or "rglru" in cfg.pattern) else 0.05
+    card, host = _serve_on(cuda, cfg, params, batch, 4), _serve_on("cpu", cfg, params, batch, 4)
+    for step, (a, b) in enumerate(zip(card, host)):
+        assert np.isfinite(a).all() and float(np.abs(a - b).max()) < tol, step
+
+
+def test_kv_roundtrip_on_the_card_writes_the_cpu_frames(cuda, monkeypatch):
+    """One scaled gemma3 prefill cache paged on the card and on the CPU:
+    the same stream byte for byte, the same restored leaves, and the
+    interp and histogram kernels launched."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import init_params, prefill
+
+    streams = []
+
+    class Writer(serve.FrameWriter):  # keeps the file each stream went to
+        def __init__(self, f, *args, **kwargs):
+            streams.append(f)
+            super().__init__(f, *args, **kwargs)
+
+    monkeypatch.setattr(serve, "FrameWriter", Writer)
+    cfg = get_config("gemma3-12b").scaled()
+    g = torch.Generator().manual_seed(0)
+    params = init_params(cfg, g, "cpu")
+    _, cache = prefill(params, cfg, {"tokens": torch.randint(0, cfg.vocab, (4, 32), generator=g)}, cache_len=64)
+    host, hs = serve._kv_roundtrip(cache, serve.DEFAULT_KV_SPEC)
+    reset_launch_counts()
+    card, cs = serve._kv_roundtrip(_to(cache, cuda), serve.DEFAULT_KV_SPEC)
+    launches = launch_counts()
+    assert all(launches[k] > 0 for k in ("interp_encode", "interp_decode", "histogram256")), launches
+    assert len(streams) == 2 and streams[1].getvalue() == streams[0].getvalue()
+    assert cs == hs
+    for a, b in zip(card["stack"], host["stack"]):
+        for k in a:
+            assert a[k].is_cuda and torch.equal(a[k].cpu(), b[k])

@@ -41,7 +41,8 @@ def test_port_sources_import_no_jax_or_repro(path):
 def test_import_leaves_jax_and_repro_out_of_sys_modules():
     code = ("import sys, repro_torch.core, repro_torch.kernels, repro_torch.core.lossless.engine, "
             "repro_torch.checkpoint, repro_torch.data, repro_torch.testing, repro_torch.launch.compressd, "
-            "repro_torch.optim; "
+            "repro_torch.optim, repro_torch.configs, repro_torch.models, repro_torch.models.convert, "
+            "repro_torch.launch.serve; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=env, check=True)
@@ -99,6 +100,30 @@ def test_compressd_serves_on_the_card_unless_asked_for_cpu():
         assert srv.device == torch.device("cpu")
     with pytest.raises(ValueError):
         CompressdServer("127.0.0.1:0", device="meta")
+
+
+def test_serving_runs_on_the_card_unless_asked_for_cpu():
+    """serve.main, init_params and init_cache take the card by default;
+    without CUDA they raise before building anything, and take the CPU
+    when asked."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import init_cache, init_params
+
+    cfg = get_config("gemma3-12b").scaled()
+    calls = [lambda: serve.main(["--scaled", "--tokens", "1", "--batch", "1", "--prompt-len", "4"]),
+             lambda: init_params(cfg),
+             lambda: init_cache(cfg, 1, 8)]
+    for call in calls:
+        if torch.cuda.is_available():
+            call()
+        else:
+            with pytest.raises(RuntimeError, match="CUDA is not available"):
+                call()
+    with pytest.raises(ValueError, match="generator"):
+        init_params(cfg, torch.Generator(), "meta")
+    assert init_params(cfg, torch.Generator(), "cpu")["embed"].device.type == "cpu"
+    assert init_cache(cfg, 1, 8, device="cpu")["stack"][0]["k"].device.type == "cpu"
 
 
 def test_wrappers_raise_instead_of_falling_back():
