@@ -101,13 +101,32 @@ Phases, in order; any failure exits non-zero:
      before the offload to after the restore (launches_by_path["serve_kv"]),
      every frame's float32 decode within eb * (1 + 1e-4) of its leaf and the
      restored leaf equal to it cast back, greedy tokens from the restored
-     and the untouched cache (reported), one profiled offload + restore;
+     and the untouched cache (reported), one profiled offload + restore of a
+     local and a global layer's K (2 of the 12 leaves);
      11c the same cache through an in-process daemon: every container equal
      to 11b's (a plan-cache hit carries "pcached" where the in-process one
-     carries the orchestrator's "pchoice"), the hits counted; 11d the ten
+     carries the orchestrator's "pchoice"), the restored leaves equal to
+     11b's, the hits counted; 11d the ten
      architectures at .scaled(), the port's weights drawn on the CPU and
      moved to the card, prefill and 4 decode steps card vs CPU within the
-     reference's own tolerances (bf16 products sum in another order there).
+     reference's own tolerances (bf16 products sum in another order there);
+ 12. training (repro_torch.runtime, repro_torch.optim, repro_torch.launch.train):
+     12a the whole published whisper-small (12 + 12 layers, 277,976,064
+     parameters from --seed) trained at the train CLI's batch 8 x seq 64:
+     one warm-up step, 8 timed steps (every loss and grad norm finite, every
+     parameter leaf the model reads changed, the launches of the compression
+     kernels counted: the kernels line's launches_by_path["train_step"]),
+     one profiled step, 4 steps on one fixed batch (the loss falls), and one
+     step with remat on and off (equal losses, lower peak memory with
+     remat); 12b the train CLI with --ckpt-eb 1e-3 on whisper-small at
+     published widths, depth cut to 1 + 1 layers, then again with one more
+     step on the same --ckpt-dir: the second run resumes from the first
+     one's final step, its restored state within every frame's bound of the
+     saved one (params, AdamW m and v), the launches of both runs counted
+     (launches_by_path["train_ckpt"]); 12c one train step of the ten
+     architectures at .scaled() and of the compressed pod step (2 pods,
+     mamba2-370m) card vs CPU: the loss, the grad norm, AdamW's m and
+     every updated parameter within its elementwise bound.
 Prints one JSON line of kernels, then, as the last line,
 {"ok": true, "device": {...}}. Without CUDA it exits non-zero and prints no result.
 
@@ -119,6 +138,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import pathlib
 import subprocess
 import sys
@@ -170,6 +190,17 @@ SERVE_BATCH = 4
 SERVE_PROMPT = 4096
 SERVE_TOKENS = 32
 SERVE_ARCH_STEPS = 4
+# phase 12: whisper-small trained whole at the train CLI's defaults (batch 8, seq 64): timed steps after one
+# warm-up, steps on one fixed batch; 12b's CLI runs (depth cut to WHISPER_SMALL's 1 + 1 layers) take this many
+# steps, then one more after the restore
+TRAIN_BATCH = 8
+TRAIN_SEQ = 64
+TRAIN_STEPS = 8
+TRAIN_FIXED = 4
+CLI_STEPS = 2
+# 12a: remat recomputes the forward with the same kernels; the gradients may differ only by the card's
+# unordered atomic adds (the embedding's backward), so the grad norm is held to this relative difference
+REMAT_GRAD_NORM_RTOL = 1e-5
 
 
 class SmokeFailure(AssertionError):
@@ -1280,6 +1311,10 @@ def check_restored(state, restored, manifest: dict, step_dir: pathlib.Path, labe
             continue
         fa, fb = _as_field(a), _as_field(b)
         for lo, n, eb_abs in chunk_geometry((step_dir / meta["file"]).read_bytes()):
+            if eb_abs == 0:  # a constant chunk (rows of an optimizer moment no batch reached) is stored exactly
+                check(torch.equal(fa[lo: lo + n], fb[lo: lo + n]), f"{label}: leaf {key} rows {lo}-{lo + n}: constant "
+                      "chunk not restored exactly")
+                continue
             err = float((fa[lo: lo + n].double() - fb[lo: lo + n].double()).abs().max()) / eb_abs
             check(err <= 1 + SLACK, f"{label}: leaf {key} rows {lo}-{lo + n}: max err/eb {err}")
             worst = max(worst, err)
@@ -2041,6 +2076,7 @@ def phase_serve_paging(device, smi: str, seed: int) -> tuple[dict, dict]:
         f"CR {stats['cr']:.4f}, pipelines {stats['pipelines']}, max err/eb {worst:.7f}, peak {peak:.2f} GiB; "
         f"launches {launches}")
     first = logits.argmax(-1)
+    restored_leaves = [t.clone() for _, t in serve_cache_leaves(restored)]  # for 11c: decoding writes the cache
     t0 = time.perf_counter()
     toks_restored = greedy_tokens(params, cfg, first, restored, P, T)
     sync(device)
@@ -2056,14 +2092,19 @@ def phase_serve_paging(device, smi: str, seed: int) -> tuple[dict, dict]:
         f"({B * T / t_decode:.1f} tok/s); tokens equal to the untouched cache's: {agree:.4f} (first difference per "
         f"sequence: {first_diff}; reported, not checked: the offload is lossy)")
     del untouched, toks_plain
-    prof = profile_run(lambda: _kv_roundtrip(cache, DEFAULT_KV_SPEC),
-                       f"11b serve_kv offload + restore ({len(leaves)} leaves, {mb:.1f} MB bf16)")
+    # the profile's own parse costs seconds per frame, so one local and one global
+    # layer's K (2 of the 12 leaves) stand for the cache
+    part = {"stack": [{"k": cache["stack"][0]["k"]}, {"k": cache["stack"][-1]["k"]}]}
+    part_mb = sum(t.numel() * t.element_size() for _, t in serve_cache_leaves(part)) / 1e6
+    prof = profile_run(lambda: _kv_roundtrip(part, DEFAULT_KV_SPEC),
+                       f"11b serve_kv offload + restore of a local and a global layer's K (2 of {len(leaves)} "
+                       f"leaves, {part_mb:.1f} MB bf16)")
     out = {"cut_layers": cfg.n_layers, "params": param_count(cfg), "batch": B, "prompt": P, "tokens": T,
            "prefill_s": t_prefill, "kv_s": t_kv, "kv_mb": mb, "stats": stats, "err_over_eb": worst, "peak_gib": peak,
            "launches": launches, "decode_s": t_decode, "token_agreement": agree, "first_difference": first_diff,
            "profile": prof}
-    del params, restored, logits
-    return out, {"cache": cache, "stream": stream, "kv_s": t_kv}
+    del params, logits, restored
+    return out, {"cache": cache, "stream": stream, "kv_s": t_kv, "restored": restored_leaves, "err_over_eb": worst}
 
 
 def phase_serve_daemon(device, smi: str, paged: dict) -> dict:
@@ -2076,6 +2117,8 @@ def phase_serve_daemon(device, smi: str, paged: dict) -> dict:
     from repro_torch.core import frames
     from repro_torch.core.compressor import _sections_unpack
     from repro_torch.launch.compressd import CompressdServer
+
+    import torch
 
     cache, stream = paged["cache"], paged["stream"]
     with CompressdServer("127.0.0.1:0", workers=2, max_request_bytes=512 << 20, device=device).start() as srv:
@@ -2098,10 +2141,15 @@ def phase_serve_daemon(device, smi: str, paged: dict) -> dict:
         check(gh == wh and [bytes(s) for s in gs] == [bytes(s) for s in ws], f"11c: frame {k} differs from 11b's")
         hits += 1
     check(stats.get("plan_cache_hits", 0) == hits > 0, f"11c: plan-cache hits {stats.get('plan_cache_hits')} vs {hits}")
-    worst = check_kv_frames(daemon_stream, cache, restored, "11c")
+    # the frames' payloads are 11b's, whose decodes 11b held to the bound: the
+    # restored leaves must be 11b's bit for bit (no second decode of every frame)
+    for (key, a), b in zip(serve_cache_leaves(restored), paged["restored"]):
+        check(torch.equal(a, b), f"11c: restored leaf {key} differs from 11b's")
+    worst = paged["err_over_eb"]
     say(f"  11c the cache through an in-process daemon ({smi}): {wall:.3f} s (in process {paged['kv_s']:.3f} s), "
         f"{equal} containers byte-equal to 11b's and {hits} plan-cache hits equal to them but for the orchestrator "
-        f"record (pcached for pchoice), {stats['plan_cache_hits']} hits counted, max err/eb {worst:.7f}")
+        f"record (pcached for pchoice), {stats['plan_cache_hits']} hits counted, restored leaves == 11b's (max "
+        f"err/eb {worst:.7f} there)")
     return {"wall_s": wall, "equal": equal, "hits": hits, "stats": stats, "err_over_eb": worst}
 
 
@@ -2167,6 +2215,343 @@ def phase_serve(device, smi: str, seed: int) -> dict:
     out["archs"] = phase_serve_archs(device, smi, seed)
     out["wall_s"] = time.perf_counter() - t11
     say(f"phase 11 took {out['wall_s']:.1f} s")
+    return out
+
+
+# ------------------------------------------------------------------ phase 12
+def train_leaves(tree) -> list:
+    from repro_torch.core.tree import leaf_paths
+
+    return leaf_paths(tree)
+
+
+def train_step_run(step, state, batch, device) -> tuple:
+    """One train step, its host wall (ending in a synchronize) in ms, and
+    its loss and grad norm as floats."""
+    import torch
+
+    t0 = time.perf_counter()
+    state, m = step(state, batch)
+    torch.cuda.synchronize(device)
+    ms = (time.perf_counter() - t0) * 1e3
+    return state, ms, float(m["loss"]), float(m["grad_norm"])
+
+
+def phase_train_whole(device, smi: str, seed: int) -> dict:
+    """Phase 12a: the whole published whisper-small (12 encoder + 12 decoder
+    layers) trains on the card: make_train_state from --seed, the plain
+    train step at the CLI's batch and sequence length, one warm-up step,
+    TRAIN_STEPS timed steps, one profiled step; then TRAIN_FIXED steps on
+    one fixed batch (the loss must fall), and remat on against off on one
+    step (equal losses, lower peak memory with remat)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config, param_count
+    from repro_torch.data.synthetic import TokenPipeline
+    from repro_torch.runtime.steps import batch_to, make_train_state, make_train_step
+
+    cfg = get_config("whisper-small")
+    t0 = time.perf_counter()
+    state0 = make_train_state(cfg, torch.Generator(device=device).manual_seed(seed), device=device)
+    torch.cuda.synchronize(device)
+    t_init = time.perf_counter() - t0
+    n_params = sum(t.numel() for _, t in train_leaves(state0.params))
+    state_gb = 3 * 4 * n_params / 1e9
+    say(f"phase 12a ({smi}): whisper-small whole (src/repro/configs/whisper_small.py, arXiv:2212.04356: 12 encoder + "
+        f"12 decoder layers, d_model 768, 12 heads, d_ff 3072, vocab 51865), {n_params} parameters "
+        f"(param_count {param_count(cfg)}), float32 params + m + v {state_gb:.3f} GB, made from seed {seed} on {device} "
+        f"in {t_init:.2f} s; batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, frames ({cfg.enc_seq}, {cfg.d_model}), remat "
+        f"{cfg.remat} ({cfg.remat_policy})")
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    data = TokenPipeline(cfg.vocab, TRAIN_BATCH, TRAIN_SEQ, seed=seed, extras={"frames": (cfg.enc_seq, cfg.d_model)})
+    step = make_train_step(cfg, None, lr=1e-3)
+    peak_reset(device)
+    state, warm_ms, loss, gnorm = train_step_run(step, state0, batch_to(next(data), device), device)
+    say(f"  warm-up step {warm_ms:.1f} ms, loss {loss:.4f}, grad norm {gnorm:.4f}")
+    step_ms, losses, norms = [], [], []
+    reset_launch_counts()
+    for _ in range(TRAIN_STEPS):
+        batch = batch_to(next(data), device)
+        torch.cuda.synchronize(device)
+        state, ms, loss, gnorm = train_step_run(step, state, batch, device)
+        step_ms.append(ms)
+        losses.append(loss)
+        norms.append(gnorm)
+    launches = launch_counts()
+    peak = peak_gib(device)
+    check(all(map(math.isfinite, losses + norms)), f"12a: non-finite loss or grad norm: {losses} {norms}")
+    mean_ms = sum(step_ms) / len(step_ms)
+    tok_s = TRAIN_BATCH * TRAIN_SEQ / (mean_ms / 1e3)
+    say(f"  {TRAIN_STEPS} steps: {mean_ms:.1f} ms a step (min {min(step_ms):.1f}, max {max(step_ms):.1f}), {tok_s:.1f} "
+        f"tokens/s, peak {peak:.2f} GiB ({smi})")
+    say(f"  losses {[round(x, 4) for x in losses]}; grad norms {[round(x, 4) for x in norms]}")
+    # every leaf moves but the cross-attention q/k/v biases, which the model
+    # never reads (the JAX package's cross-attention has no biases): zero
+    # gradient, zero values, so weight decay leaves them too
+    unread = {n for n, _ in train_leaves(state0.params) if "_cross_b" in n}
+    same = {n for (n, a), (_, b) in zip(train_leaves(state0.params), train_leaves(state.params)) if torch.equal(a, b)}
+    check(same == unread, f"12a: parameter leaves left unchanged {sorted(same)}, expected {sorted(unread)}")
+    del state0
+    batch = batch_to(next(data), device)
+    prof = profile_run(lambda: step(state, batch), f"12a: one train step of the whole whisper-small ({smi})",
+                       tally={"fp32 -> bf16 casts": "bfloat16_copy_kernel", "other copies": "direct_copy_kernel"})
+    # the loss must fall on one fixed batch
+    fixed = batch_to(next(data), device)
+    s, fixed_losses = state, []
+    for _ in range(TRAIN_FIXED):
+        prev = s
+        s, _, loss, _ = train_step_run(step, s, fixed, device)
+        fixed_losses.append(loss)
+    adamw_err = adamw_step_errors(prev, s, lr=1e-3)
+    del s, prev
+    check(fixed_losses[-1] < fixed_losses[0], f"12a: the loss did not fall on a fixed batch: {fixed_losses}")
+    check(adamw_err <= 1.0, f"12a: the last step's parameters are {adamw_err} x their bound from AdamW's formula")
+    say(f"  {TRAIN_FIXED} steps on one fixed batch: losses {[round(x, 4) for x in fixed_losses]}; the last step's "
+        f"parameters against AdamW's formula on its own m and v: worst |dp| {adamw_err:.4f} x its bound (<= 1)")
+    # remat on against off, one step each from the same state and batch
+    remat = {}
+    for on in (True, False):
+        st = make_train_step(dataclasses.replace(cfg, remat=on), None, lr=1e-3)
+        torch.cuda.synchronize(device)
+        peak_reset(device)
+        _, ms, loss, gnorm = train_step_run(st, state, fixed, device)
+        remat[on] = {"ms": ms, "loss": loss, "grad_norm": gnorm, "peak_gib": peak_gib(device)}
+    check(remat[True]["loss"] == remat[False]["loss"], f"12a: remat changed the loss: {remat}")
+    gn_rel = abs(remat[True]["grad_norm"] - remat[False]["grad_norm"]) / remat[False]["grad_norm"]
+    check(gn_rel <= REMAT_GRAD_NORM_RTOL,
+          f"12a: remat moved the grad norm by {gn_rel} relative (limit {REMAT_GRAD_NORM_RTOL}): {remat}")
+    check(remat[True]["peak_gib"] < remat[False]["peak_gib"], f"12a: remat did not lower peak memory: {remat}")
+    say(f"  remat on: {remat[True]['ms']:.1f} ms, peak {remat[True]['peak_gib']:.2f} GiB; off: {remat[False]['ms']:.1f} "
+        f"ms, peak {remat[False]['peak_gib']:.2f} GiB; losses equal ({remat[True]['loss']:.6f}), grad norms "
+        f"{remat[True]['grad_norm']:.6f} / {remat[False]['grad_norm']:.6f} (relative difference {gn_rel:.3e}, limit "
+        f"{REMAT_GRAD_NORM_RTOL})")
+    return {"params": n_params, "param_count": param_count(cfg), "state_gb": state_gb, "warm_ms": warm_ms,
+            "step_ms": step_ms, "mean_step_ms": mean_ms, "tokens_per_s": tok_s, "peak_gib": peak, "losses": losses,
+            "grad_norms": norms, "fixed_losses": fixed_losses, "adamw_over_bound": adamw_err, "remat": {str(k): v for k, v in remat.items()},
+            "remat_grad_norm_rel": gn_rel,
+            "profile": prof, "launches": launches}
+
+
+def phase_train_cli(device, smi: str, seed: int, directory: pathlib.Path) -> dict:
+    """Phase 12b: the train CLI (repro_torch.launch.train.run) on whisper-small at
+    published widths, depth cut to WHISPER_SMALL's 1 + 1 layers (the CLI has
+    no depth flag: get_config is wrapped), with error-bounded checkpoints
+    (--ckpt-eb 1e-3); then again on the same --ckpt-dir with one more step:
+    it must resume from the first run's final step, its restored state
+    within each frame's bound of the saved one, the launches of the path
+    counted."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import train
+    from repro_torch.runtime.train_loop import Trainer
+
+    class Recording(Trainer):
+        """Keeps the state its restore produced, and the restore's wall."""
+
+        def _restore(self):
+            t0 = time.perf_counter()
+            super()._restore()
+            if self.step:
+                torch.cuda.synchronize(self.device)
+                self.restored, self.restore_s = self.state, time.perf_counter() - t0
+
+    real_config, real_trainer = train.get_config, train.Trainer
+    cut = {"n_layers": WHISPER_SMALL["dec_layers"], "enc_layers": WHISPER_SMALL["enc_layers"]}
+    train.get_config = lambda arch: dataclasses.replace(real_config(arch), **cut)
+    train.Trainer = Recording
+    args = ["--arch", "whisper-small", "--ckpt-eb", f"{CKPT_EB:g}", "--ckpt-dir", str(directory), "--save-every", "1000"]
+    say(f"phase 12b ({smi}): python -m repro_torch.launch.train {' '.join(args)} --steps {CLI_STEPS}, then --steps "
+        f"{CLI_STEPS + 1}; whisper-small at published widths, depth cut to {cut}")
+    try:
+        reset_launch_counts()
+        first = train.run(args + ["--steps", str(CLI_STEPS)])
+        first_launches = launch_counts()
+        second = train.run(args + ["--steps", str(CLI_STEPS + 1)])
+        launches = launch_counts()
+    finally:
+        train.get_config, train.Trainer = real_config, real_trainer
+    for k in ("interp_encode", "interp_decode", "histogram256"):
+        check(launches[k] > 0, f"12b: kernel {k} was not launched on the trainer's checkpoint path")
+    tr1, tr2 = first["trainer"], second["trainer"]
+    check(second["start_step"] == CLI_STEPS and tr2.step == CLI_STEPS + 1,
+          f"12b: the second run resumed at {second['start_step']} and ended at {tr2.step}")
+    check(all(map(math.isfinite, first["losses"] + second["losses"])), "12b: non-finite loss")
+    step_dir = directory / f"step_{CLI_STEPS:08d}"
+    manifest = json.loads((step_dir / "manifest.json").read_text())
+    worst = check_restored(tr1.state, tr2.restored, manifest, step_dir, "12b")
+    n_frames = sum(m.get("n_frames", 0) for m in manifest["leaves"].values())
+    n_state = sum(t.numel() * t.element_size() for _, t in train_leaves(tr1.state))
+    save_s = first["wall_s"] - sum(first["step_s"])
+    say(f"  run 1: {CLI_STEPS} steps ({[round(x * 1e3, 1) for x in first['step_s']]} ms), final save of "
+        f"{n_state / 1e6:.1f} MB (params + m + v + step) {save_s:.3f} s ({n_state / 1e6 / save_s:.1f} MB/s), CR "
+        f"{manifest['cr']}, {n_frames} v3 frames, {len(manifest['leaves'])} leaves")
+    say(f"  run 2: restored step {second['start_step']} in {tr2.restore_s:.3f} s "
+        f"({n_state / 1e6 / tr2.restore_s:.1f} MB/s), max err/eb {worst:.7f} over every frame, 1 step, final save; "
+        f"wall {second['wall_s']:.3f} s; losses {first['losses']} then {second['losses']}")
+    say(f"  launches: run 1 {first_launches}; both runs {launches}")
+    return {"widths": WHISPER_SMALL, "state_mb": n_state / 1e6, "save_s": save_s, "restore_s": tr2.restore_s,
+            "cr": manifest["cr"], "frames": n_frames, "err_over_eb": worst, "launches": launches,
+            "first_launches": first_launches, "losses": first["losses"] + second["losses"],
+            "walls_s": [first["wall_s"], second["wall_s"]]}
+
+
+# phase 12c, card against CPU after one train step: max |loss difference|, the grad norm's relative
+# difference, and the worst parameter leaf's ||m_card - m_cpu|| / ||m_cpu|| (after the first step AdamW's m
+# is 0.1 x the clipped gradient); bf16 products sum in another order on the card. Each limit is a few times
+# the worst reading of PR 20's chip runs (9.0e-5, 7.2e-4, 3.2e-2, all on recurrentgemma-2b)
+TRAIN_CARD_LIMITS = (5e-4, 4e-3, 0.1)
+
+
+def first_step_param_errors(card_state, host_state, lr: float, b1: float = 0.9, eps: float = 1e-8) -> dict:
+    """The updated parameters of one AdamW step from one state, card against
+    CPU, each element held to its own bound. The first step moves a
+    parameter by ``lr * (g / (|g| + eps) + wd * p)``; the decay term is the
+    same on both sides. Let delta be a leaf's largest gradient difference
+    |g_card - g_cpu| (read from m = (1 - b1) g). Where |g_cpu| <= 2 delta
+    the two gradients may differ in sign, and the parameters by up to
+    2 lr. Elsewhere both gradients have the sign of g_cpu and at least half
+    its size, so they differ by at most min(2 lr, 2 lr eps / |g_cpu|). Four
+    ulps of |p| + lr are added for the rounding. Returns the worst
+    |dp| / bound, the share of elements in the sign band, and, for the
+    elements that differ by more than 1e-6, their count, their largest
+    |g_cpu|, and the share of all gradients that are that small."""
+    import torch
+
+    worst, n, n_band, moved, g_moved, g_all = 0.0, 0, 0, 0, 0.0, []
+    for (_, pa), (_, pb), (_, ma), (_, mb) in zip(train_leaves(card_state.params), train_leaves(host_state.params),
+                                                  train_leaves(card_state.opt.m), train_leaves(host_state.opt.m)):
+        ulp = torch.finfo(pb.dtype).eps
+        pa, pb = pa.cpu().double(), pb.double()
+        g = mb.double() / (1 - b1)
+        delta = float((ma.cpu().double() - mb.double()).abs().max()) / (1 - b1)
+        band = g.abs() <= 2 * delta
+        tight = torch.clamp(2 * lr * eps / g.abs(), max=2 * lr)
+        bound = torch.where(band, torch.full_like(g, 2 * lr), tight) + 4 * ulp * (pb.abs() + lr)
+        d = (pa - pb).abs()
+        worst = max(worst, float((d / bound).max()))
+        n, n_band = n + g.numel(), n_band + int(band.sum())
+        far = d > 1e-6
+        moved += int(far.sum())
+        if far.any():
+            g_moved = max(g_moved, float(g.abs()[far].max()))
+        g_all.append(g.abs().reshape(-1))
+    g_all = torch.cat(g_all)
+    return {"worst_over_bound": worst, "band_share": n_band / n, "moved": moved, "moved_share": moved / n,
+            "moved_max_g": g_moved, "moved_g_quantile": float((g_all <= g_moved).double().mean()) if moved else 0.0}
+
+
+# the train step's AdamW against its own formula: each updated parameter against p - lr * ((m / c1) /
+# (sqrt(v / c2) + eps) + wd * p), computed in float64 from the step's own m and v, within 2^-23 x (4 lr (|a| +
+# wd |p|) + |p_new|): room for 8 half-ulp roundings in the update and 2 in the parameter (eager ops, no FMA)
+def adamw_step_errors(old_state, new_state, lr: float, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
+                      wd: float = 0.1) -> float:
+    """The worst updated parameter's distance from the AdamW formula over
+    its bound (<= 1 holds)."""
+    import torch
+
+    t = new_state.opt.step.to(torch.float32)
+    c1 = float(1.0 - torch.pow(torch.tensor(b1, dtype=torch.float32, device=t.device), t))
+    c2 = float(1.0 - torch.pow(torch.tensor(b2, dtype=torch.float32, device=t.device), t))
+    worst = 0.0
+    for (_, p0), (_, p1), (_, m), (_, v) in zip(train_leaves(old_state.params), train_leaves(new_state.params),
+                                                train_leaves(new_state.opt.m), train_leaves(new_state.opt.v)):
+        p0 = p0.to(p1.device).double()
+        a = (m.double() / c1) / (torch.sqrt(v.double() / c2) + eps)
+        ref = p0 - lr * (a + wd * p0)
+        bound = torch.finfo(p1.dtype).eps * (4 * lr * (a.abs() + wd * p0.abs()) + ref.abs()) + 1e-30
+        worst = max(worst, float(((p1.double() - ref).abs() / bound).max()))
+    return worst
+
+
+def phase_train_archs(device, smi: str, seed: int) -> dict:
+    """Phase 12c: one plain train step of each of the ten architectures at
+    .scaled() on the card against the CPU (the port's weights drawn on the
+    CPU and moved); then the compressed pod step (2 pods) on mamba2-370m."""
+    import types
+
+    import torch
+
+    from repro_torch.configs import ARCHS, get_config
+    from repro_torch.core.tree import tree_map
+    from repro_torch.data.synthetic import TokenPipeline
+    from repro_torch.runtime.steps import make_train_state, make_train_step
+
+    def one(arch, npods=0):
+        cfg = get_config(arch).scaled()
+        state = make_train_state(cfg, torch.Generator().manual_seed(seed), npods=npods, device="cpu")
+        extras = {}
+        if cfg.stub_frontend == "vit":
+            extras["img"] = (cfg.n_img_tokens, cfg.d_model)
+        if cfg.enc_layers:
+            extras["frames"] = (cfg.enc_seq, cfg.d_model)
+        batch = next(TokenPipeline(cfg.vocab, 4, 32, seed=seed, extras=extras))
+        mesh = types.SimpleNamespace(shape={"pod": npods}) if npods else None
+        step = make_train_step(cfg, mesh, lr=1e-3, compress_pods=bool(npods))
+        card_state, card = step(tree_map(lambda t: t.to(device), state), batch)
+        host_state, host = step(state, batch)
+        dl = abs(float(card["loss"]) - float(host["loss"]))
+        dn = abs(float(card["grad_norm"]) - float(host["grad_norm"])) / float(host["grad_norm"])
+        m_err = 0.0
+        for (_, a), (_, b) in zip(train_leaves(card_state.opt.m), train_leaves(host_state.opt.m)):
+            nb = float(b.double().norm())
+            d = float((a.cpu().double() - b.double()).norm())
+            m_err = max(m_err, d / nb if nb > 0 else d)
+        pe = first_step_param_errors(card_state, host_state, lr=1e-3)
+        pe["adamw_over_bound"] = adamw_step_errors(state, card_state, lr=1e-3)
+        lim = TRAIN_CARD_LIMITS
+        label = f"{arch}{' (2 pods, compressed)' if npods else ''}"
+        check(math.isfinite(float(card["loss"])) and dl < lim[0] and dn < lim[1] and m_err < lim[2],
+              f"12c {label}: card vs cpu loss {dl}, grad norm {dn}, worst m leaf {m_err} (limits {lim})")
+        check(pe["worst_over_bound"] <= 1.0 and pe["adamw_over_bound"] <= 1.0,
+              f"12c {label}: an updated parameter lies outside its bound: {pe}")
+        out = {"loss_diff": dl, "grad_norm_rel": dn, "m_rel": m_err, "params": pe}
+        if npods:
+            r = [float((a.cpu() - b).abs().max()) for (_, a), (_, b) in
+                 zip(train_leaves(card_state.resid), train_leaves(host_state.resid))]
+            out["resid_max_diff"] = max(r)
+        return label, out
+
+    out = dict(one(arch) for arch in sorted(ARCHS))
+    label, r = one("mamba2-370m", npods=2)
+    out[label] = r
+    lim = TRAIN_CARD_LIMITS
+    say(f"  12c one train step at .scaled(), card vs cpu ({smi}): |loss diff| (< {lim[0]}) / grad norm rel (< "
+        f"{lim[1]}) / worst m leaf rel (< {lim[2]}) / worst updated parameter's |dp| over its bound (<= 1): " + "; ".join(
+            f"{a} {r['loss_diff']:.2e} / {r['grad_norm_rel']:.2e} / {r['m_rel']:.2e} / "
+            f"{r['params']['worst_over_bound']:.6f}" for a, r in out.items()))
+    say("  12c the card's updated parameters against AdamW's formula on the card's own m and v, worst |dp| over "
+        "its bound (<= 1): " + "; ".join(f"{a} {r['params']['adamw_over_bound']:.4f}" for a, r in out.items()))
+    say("  12c updated parameters: share in the sign band |g_cpu| <= 2 delta / elements with |dp| > 1e-6 (share) / "
+        "their largest |g_cpu| / share of all |g_cpu| that small: " + "; ".join(
+            f"{a} {r['params']['band_share']:.4f} / {r['params']['moved']} ({r['params']['moved_share']:.4f}) / "
+            f"{r['params']['moved_max_g']:.3e} / {r['params']['moved_g_quantile']:.4f}" for a, r in out.items()))
+    return out
+
+
+def phase_train(device, smi: str, seed: int) -> dict:
+    """Phase 12: single-device LM training on the card."""
+    import tempfile
+
+    import torch
+
+    t12 = time.perf_counter()
+    say(f"phase 12 ({smi}): training (repro_torch.runtime, repro_torch.optim, repro_torch.launch.train) on {device}")
+    out = {"whole": phase_train_whole(device, smi, seed)}
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as d:
+        out["cli"] = phase_train_cli(device, smi, seed, pathlib.Path(d))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["archs"] = phase_train_archs(device, smi, seed)
+    out["archs_s"] = time.perf_counter() - t0
+    out["wall_s"] = time.perf_counter() - t12
+    say(f"phase 12 took {out['wall_s']:.1f} s")
     return out
 
 
@@ -2381,11 +2766,18 @@ def main() -> int:
 
     # 11. serving
     results["serve"] = phase_serve(device, smi, args.seed)
-    results["wall_s"] = time.perf_counter() - t_start
-    say(f"the script took {results['wall_s']:.1f} s from its start (build included)")
+    results["phase11_end_s"] = time.perf_counter() - t_start
     for k in kernels:
         k["launches_by_path"]["serve"] = results["serve"]["entry"]["launches"][k["name"]]
         k["launches_by_path"]["serve_kv"] = results["serve"]["paging"]["launches"][k["name"]]
+
+    # 12. training
+    results["train"] = phase_train(device, smi, args.seed)
+    results["wall_s"] = time.perf_counter() - t_start
+    say(f"the script took {results['wall_s']:.1f} s from its start (build included)")
+    for k in kernels:
+        k["launches_by_path"]["train_step"] = results["train"]["whole"]["launches"][k["name"]]
+        k["launches_by_path"]["train_ckpt"] = results["train"]["cli"]["launches"][k["name"]]
     if args.out:
         out = pathlib.Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)

@@ -35,17 +35,20 @@ def children(node):
 def leaf_paths(tree) -> list[tuple[str, object]]:
     """``(name, leaf)`` of every leaf, the name its key path joined by ``_``."""
     out = []
-
-    def walk(node, path):
-        kids = children(node)
-        if kids is None:
-            out.append(("_".join(str(k) for k in path), node))
-            return
-        for k, child in kids:
-            walk(child, path + (k,))
-
-    walk(tree, ())
+    _walk(tree, (), out)
     return out
+
+
+def _walk(node, path, out) -> None:
+    # a module-level function: a nested one that calls itself is a reference
+    # cycle, and its list of leaves (a whole train state's tensors) would
+    # wait for the cycle collector instead of being freed on return
+    kids = children(node)
+    if kids is None:
+        out.append(("_".join(str(k) for k in path), node))
+        return
+    for k, child in kids:
+        _walk(child, path + (k,), out)
 
 
 def tree_map(fn, tree):

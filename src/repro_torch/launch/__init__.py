@@ -2,10 +2,13 @@
 
     python -m repro_torch.launch.compressd --addr 127.0.0.1:7733 --workers 4
     python -m repro_torch.launch.serve --kv-compress [--compressd ADDR] [--device cpu]
+    python -m repro_torch.launch.train --arch whisper-small --ckpt-eb 1e-3 [--device cpu]
 
 :mod:`.compressd` is the compression daemon and its client, speaking the
 JAX package's CPD1 protocol, so either package's client talks to either
 package's daemon. :mod:`.serve` is the batched serving driver (prefill,
-greedy decode) with the KV cache paged through the compressor. Importing
-this package starts nothing.
+greedy decode) with the KV cache paged through the compressor.
+:mod:`.train` is the training driver (the fault-tolerant Trainer, with
+error-bounded checkpoints under ``--ckpt-eb``); :mod:`.specs` gives every
+step's inputs as meta tensors. Importing this package starts nothing.
 """

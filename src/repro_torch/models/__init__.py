@@ -1,4 +1,4 @@
-"""repro_torch.models — the LM stack's serving half on plain tensor trees.
+"""repro_torch.models — the LM stack on plain tensor trees.
 
 The JAX package's ``repro.models`` (layers, model, rglru, ssm) as plain
 functions on nested dicts and lists of tensors with its keys; ``convert``
@@ -9,6 +9,7 @@ from .model import (  # noqa: F401
     forward,
     init_cache,
     init_params,
+    loss_fn,
     model_device,
     prefill,
 )

@@ -26,12 +26,21 @@ CDTYPE = torch.bfloat16
 NEG = -1e30  # the reference's mask value
 
 
+class MetaGenerator:
+    """Stands in for a ``torch.Generator`` where the init functions build on
+    the ``meta`` device (shapes and dtypes, no values): torch has no
+    generator there."""
+
+    device = torch.device("meta")
+
+
 def _dense_init(gen: torch.Generator, shape, scale=None, *, lead=()):
     """N(0, scale^2) float32 of ``lead + shape`` on the generator's device;
     ``scale`` defaults to 1/sqrt(shape[0]) (``lead`` stacks layers, as
     ``jax.vmap`` of the JAX init does)."""
     scale = scale if scale is not None else 1.0 / math.sqrt(shape[0])
-    return torch.randn(tuple(lead) + tuple(shape), generator=gen, device=gen.device, dtype=torch.float32).mul_(scale)
+    g = gen if isinstance(gen, torch.Generator) else None
+    return torch.randn(tuple(lead) + tuple(shape), generator=g, device=gen.device, dtype=torch.float32).mul_(scale)
 
 
 def _zeros(gen: torch.Generator, shape, *, lead=()):

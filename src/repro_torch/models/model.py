@@ -10,7 +10,8 @@ before the groups.
 
 Entry points:
   init_params(cfg, generator, device)  -> params tree
-  forward(params, cfg, batch)          -> (logits, aux)      [eval]
+  forward(params, cfg, batch)          -> (logits, aux)      [train/eval]
+  loss_fn(params, cfg, batch)          -> scalar
   prefill(params, cfg, batch)          -> (logits, cache)
   decode_step(params, cfg, token, pos, cache) -> (logits, cache)
   init_cache(cfg, batch, seq_len)      -> cache tree         [decode entry state]
@@ -18,20 +19,32 @@ Entry points:
 Trees are nested dicts and lists of tensors with the JAX package's keys,
 so their leaves flatten in its order (dict keys sorted). ``init_params``
 and ``init_cache`` build on the card unless given ``device="cpu"`` and
-raise where CUDA is absent; the other functions run where their tensors
-are. ``decode_step`` updates the cache's tensors in place.
+raise where CUDA is absent (``device="meta"`` gives shapes only); the other
+functions run where their tensors are. ``decode_step`` updates the cache's
+tensors in place.
+
+Under ``cfg.remat`` each pattern group's function (``forward``'s and
+``prefill``'s groups, the encoder's layers) runs under
+``torch.utils.checkpoint`` when autograd records it: the backward pass
+recomputes the group from its inputs (policy ``"nothing"``), keeping the
+matmul outputs (``"dots"``) or each layer's mixer output (``"mixer"``).
+Remat changes memory, never values.
 """
 from __future__ import annotations
 
+import functools
 import math
+import threading
 
 import torch
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from ..configs.base import ModelConfig
 from . import rglru as rg
 from . import ssm as ssm_mod
 from .layers import (
     CDTYPE,
+    MetaGenerator,
     _dense_init,
     _mm32,
     _scalar,
@@ -85,6 +98,65 @@ def _layer_kinds(cfg: ModelConfig):
     return tuple(out)
 
 
+_NAMES = threading.local()  # .saved: names the running remat policy keeps; .marking: the name being marked
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default)
+
+
+def checkpoint_name(x, name: str):
+    """``jax.ad_checkpoint.checkpoint_name``: mark ``x`` for a policy that
+    saves it by name. Outside such a policy ``x`` comes back as it is;
+    inside, as a copy made by one recognisable op (values unchanged)."""
+    if name not in getattr(_NAMES, "saved", ()):
+        return x
+    _NAMES.marking = name
+    try:
+        return torch.ops.aten.clone.default(x)
+    finally:
+        _NAMES.marking = None
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _save_marked(ctx, op, *args, **kwargs):
+    if op is torch.ops.aten.clone.default and getattr(_NAMES, "marking", None) is not None:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(f, cfg: ModelConfig):
+    """``f`` under ``torch.utils.checkpoint`` when ``cfg.remat`` (and autograd
+    records the call): policy ``"nothing"`` saves only the inputs, ``"dots"``
+    the matmul outputs, ``"mixer"`` each layer's mixer output."""
+    if not cfg.remat:
+        return f
+    saved = ("mixer_out",) if cfg.remat_policy == "mixer" else ()
+
+    def named(*args):
+        old = getattr(_NAMES, "saved", ())
+        _NAMES.saved = saved
+        try:
+            return f(*args)
+        finally:
+            _NAMES.saved = old
+
+    if cfg.remat_policy == "dots":
+        context_fn = functools.partial(create_selective_checkpoint_contexts, _save_dots)
+    elif cfg.remat_policy == "mixer":
+        context_fn = functools.partial(create_selective_checkpoint_contexts, _save_marked)
+    else:
+        context_fn = None
+
+    def run(*args):
+        if not torch.is_grad_enabled():
+            return f(*args)
+        kw = {"context_fn": context_fn} if context_fn is not None else {}
+        return checkpoint(named, *args, use_reentrant=False, **kw)
+
+    return run
+
+
 def _d(x):
     return x.to(CDTYPE)
 
@@ -113,9 +185,13 @@ def init_block(gen, cfg: ModelConfig, kind: str, *, moe: bool, cross: bool = Fal
 def init_params(cfg: ModelConfig, generator: torch.Generator | None = None, device=None) -> dict:
     """Random fp32 parameters with the JAX package's tree, drawn from
     ``generator`` (seed 0 on ``device`` when None; it must live on
-    ``device``). The values differ from ``jax.random``'s draws."""
+    ``device``; None on ``"meta"``, where torch has no generator). The
+    values differ from ``jax.random``'s draws."""
     dev = model_device(device)
-    gen = torch.Generator(device=dev).manual_seed(0) if generator is None else generator
+    if generator is None:
+        gen = MetaGenerator() if dev.type == "meta" else torch.Generator(device=dev).manual_seed(0)
+    else:
+        gen = generator
     if gen.device.type != dev.type:
         raise ValueError(f"the generator lives on {gen.device}, the parameters on {dev}")
     params: dict = {
@@ -148,6 +224,7 @@ def block_apply(x, p, cfg: ModelConfig, kind: str, moe: bool, memory=None):
         m = ssm_mod.ssm_block(h, p["ssm"], cfg)
     else:
         m = rg.rglru_block(h, p["rglru"], cfg)
+    m = checkpoint_name(m, "mixer_out")
     x = x + m
     if "cross" in p and memory is not None:
         h = rms_norm(x, p["ln_x"], cfg.norm_eps)
@@ -181,9 +258,15 @@ def _embed_inputs(params, cfg: ModelConfig, batch):
 def _encode(params, cfg: ModelConfig, frames):
     """Whisper encoder over stub frame embeddings (B, enc_seq, d)."""
     x = _d(frames)
+
+    def grp(x, sl):
+        x, _ = block_apply(x, sl, cfg, "bidir", False)
+        return x
+
+    f = _remat(grp, cfg)
     stacked = params["enc_stack"][0]
     for g in range(cfg.enc_layers):
-        x, _ = block_apply(x, _slice(stacked, g), cfg, "bidir", False)
+        x = f(x, _slice(stacked, g))
     return rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
 
@@ -203,12 +286,40 @@ def forward(params, cfg: ModelConfig, batch):
         x, aux = block_apply(x, p, cfg, "attn", False, memory)
         aux_total = aux_total + aux
     kinds = _layer_kinds(cfg)
-    for g in range(cfg.n_groups):
-        slices = _slice(params["stack"], g)
+
+    def group_fn(x, slices):
+        aux_g = torch.zeros((), dtype=torch.float32, device=x.device)
         for p_i, (kind, moe) in enumerate(kinds):
             x, aux = block_apply(x, slices[p_i], cfg, kind, moe, memory)
-            aux_total = aux_total + aux
-    return _logits(params, cfg, x), aux_total
+            aux_g = aux_g + aux
+        return x, aux_g
+
+    f = _remat(group_fn, cfg)
+    auxs = []
+    for g in range(cfg.n_groups):
+        x, aux_g = f(x, _slice(params["stack"], g))
+        auxs.append(aux_g)
+    # the JAX package adds the scanned groups' stacked aux terms with one sum
+    return _logits(params, cfg, x), aux_total + torch.stack(auxs).sum()
+
+
+def loss_fn(params, cfg: ModelConfig, batch):
+    """Mean next-token cross-entropy over the positions whose label is >= 0,
+    in float32, plus ``cfg.aux_loss_coef`` times the MoE balance loss. On
+    the vit family the image positions carry label -1."""
+    logits, aux = forward(params, cfg, batch)
+    labels = batch["labels"]
+    if cfg.stub_frontend == "vit" and "img" in batch:  # image positions carry no loss
+        pad = torch.full(batch["img"].shape[:2], -1, dtype=labels.dtype, device=labels.device)
+        labels = torch.cat([pad, labels], dim=1)
+    mask = labels >= 0
+    lse = torch.logsumexp(logits, dim=-1)
+    # the label's logit: a gather equals the JAX package's masked sum, which
+    # adds that one logit to zeros
+    ll = torch.take_along_dim(logits, labels.clamp(min=0).long()[..., None], dim=-1)[..., 0]
+    nll = torch.where(mask, lse - ll, torch.zeros((), dtype=lse.dtype, device=lse.device))
+    loss = nll.sum() / torch.clamp(mask.sum(), min=1)
+    return loss + cfg.aux_loss_coef * aux
 
 
 # ------------------------------------------------------------------ caches
@@ -348,13 +459,18 @@ def prefill(params, cfg: ModelConfig, batch, cache_len: int | None = None):
         x, c = block_prefill(x, p, "attn")
         new_prefix.append(c)
     kinds = _layer_kinds(cfg)
-    groups = []
-    for g in range(cfg.n_groups):
-        pslice = _slice(params["stack"], g)
+
+    def group_fn(x, pslice):
         cs = []
         for p_i, (kind, _) in enumerate(kinds):
             x, c = block_prefill(x, pslice[p_i], kind)
             cs.append(c)
+        return x, cs
+
+    f = _remat(group_fn, cfg)
+    groups = []
+    for g in range(cfg.n_groups):
+        x, cs = f(x, _slice(params["stack"], g))
         groups.append(cs)
     logits = _logits(params, cfg, x[:, -1:])[:, 0]
     cache = {"stack": _stack(groups)}

@@ -580,3 +580,142 @@ def test_kv_roundtrip_on_the_card_writes_the_cpu_frames(cuda, monkeypatch):
     for a, b in zip(card["stack"], host["stack"]):
         for k in a:
             assert a[k].is_cuda and torch.equal(a[k].cpu(), b[k])
+
+
+# ------------------------------------------------------------ training (slice 10)
+TRAIN_LIMITS = (0.02, 0.05, 0.1)  # |loss diff|, grad norm relative, worst leaf of AdamW m (0.1 x the gradient), relative
+
+
+def _train_step_both(cuda, arch, npods=0):
+    """One train step of ``arch`` at .scaled() on the card and on the CPU
+    from the same state and batch."""
+    import types
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_map
+    from repro_torch.data.synthetic import TokenPipeline
+    from repro_torch.runtime.steps import make_train_state, make_train_step
+
+    cfg = get_config(arch).scaled()
+    state = make_train_state(cfg, torch.Generator().manual_seed(0), npods=npods, device="cpu")
+    extras = {}
+    if cfg.stub_frontend == "vit":
+        extras["img"] = (cfg.n_img_tokens, cfg.d_model)
+    if cfg.enc_layers:
+        extras["frames"] = (cfg.enc_seq, cfg.d_model)
+    batch = next(TokenPipeline(cfg.vocab, 4, 32, extras=extras))
+    mesh = types.SimpleNamespace(shape={"pod": npods}) if npods else None
+    step = make_train_step(cfg, mesh, lr=1e-3, compress_pods=bool(npods))
+    card = step(tree_map(lambda t: t.to(cuda), state), batch)
+    return card, step(state, batch)
+
+
+def _check_train_step(card, host):
+    from repro_torch.core.tree import leaf_paths
+
+    (cs, cm), (hs, hm) = card, host
+    assert all(t.is_cuda for _, t in leaf_paths(cs))
+    assert np.isfinite(float(cm["loss"])) and abs(float(cm["loss"]) - float(hm["loss"])) < TRAIN_LIMITS[0]
+    assert abs(float(cm["grad_norm"]) - float(hm["grad_norm"])) < TRAIN_LIMITS[1] * float(hm["grad_norm"])
+    for (n, a), (_, b) in zip(leaf_paths(cs.opt.m), leaf_paths(hs.opt.m)):
+        nb = float(b.double().norm())
+        d = float((a.cpu().double() - b.double()).norm())
+        assert (d / nb if nb > 0 else d) < TRAIN_LIMITS[2], n
+
+
+@pytest.mark.parametrize("arch", SERVE_ARCHS)
+def test_scaled_architectures_train_on_the_card_as_on_the_cpu(cuda, arch):
+    """One plain train step (loss, autograd, clip, AdamW) card vs CPU: the
+    loss, the grad norm and AdamW's m (0.1 x the clipped gradient after the
+    first step); bf16 products sum in another order on the card."""
+    _check_train_step(*_train_step_both(cuda, arch))
+
+
+def test_compressed_pod_step_on_the_card_as_on_the_cpu(cuda):
+    card, host = _train_step_both(cuda, "mamba2-370m", npods=2)
+    _check_train_step(card, host)
+    from repro_torch.core.tree import leaf_paths
+
+    assert all(float(r.abs().max()) > 0 for _, r in leaf_paths(card[0].resid) if r.numel() > 1)
+
+
+def test_pod_exchange_payloads_on_the_card_equal_the_cpu(cuda):
+    from repro_torch.runtime.steps import pod_exchange
+
+    g = torch.Generator().manual_seed(3)
+    grads, resid = torch.randn((2, 300, 17), generator=g), 1e-3 * torch.randn((2, 300, 17), generator=g)
+    ca, cr, cq, cs = pod_exchange(grads.to(cuda), resid.to(cuda))
+    ha, hr, hq, hs = pod_exchange(grads, resid)
+    assert torch.equal(cq.cpu(), hq) and torch.equal(cs.cpu(), hs)
+    assert torch.allclose(ca.cpu(), ha, rtol=1e-6, atol=1e-7) and torch.allclose(cr.cpu(), hr, rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.parametrize("policy", ["nothing", "dots", "mixer"])
+def test_remat_on_the_card_keeps_the_loss(cuda, policy):
+    """Remat recomputes the same kernels, so the loss is bit-equal; the
+    gradients agree to the card's atomics (index_add_ and the embedding's
+    backward add in no fixed order)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import leaf_paths
+    from repro_torch.models import init_params, loss_fn
+
+    cfg = get_config("olmoe-1b-7b").scaled()
+    g = torch.Generator(device=cuda).manual_seed(0)
+    params = init_params(cfg, g, cuda)
+    toks = torch.randint(0, cfg.vocab, (2, 17), generator=g, device=cuda)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    out = []
+    for c in (dataclasses.replace(cfg, remat=False), dataclasses.replace(cfg, remat=True, remat_policy=policy)):
+        leaves = [t.detach().requires_grad_() for _, t in leaf_paths(params)]
+        it = iter(leaves)
+        from repro_torch.core.tree import tree_map
+
+        loss = loss_fn(tree_map(lambda _: next(it), params), c, batch)
+        out.append((loss.detach(), torch.autograd.grad(loss, leaves)))
+    assert torch.equal(out[0][0], out[1][0])
+    for a, b in zip(out[0][1], out[1][1]):
+        assert torch.allclose(a, b, rtol=1e-3, atol=1e-6)
+
+
+def test_adamw_on_the_card_matches_the_cpu(cuda):
+    from repro_torch.optim import adamw_update, clip_by_global_norm, cosine_with_warmup, init_opt
+
+    g = torch.Generator().manual_seed(1)
+    p = {"a": torch.randn((64, 33), generator=g), "b": torch.randn(100, generator=g)}
+    hp, cp = p, _to(p, cuda)
+    ho, co = init_opt(hp), init_opt(cp)
+    for _ in range(3):
+        grads = {"a": torch.randn((64, 33), generator=g), "b": torch.randn(100, generator=g)}
+        hg, hn = clip_by_global_norm(grads, 1.0)
+        cg, cn = clip_by_global_norm(_to(grads, cuda), 1.0)
+        assert torch.allclose(cn.cpu(), hn, rtol=1e-6)
+        hp, ho = adamw_update(hp, hg, ho, 1e-3)
+        cp, co = adamw_update(cp, cg, co, 1e-3)
+        for k in p:
+            assert torch.allclose(cp[k].cpu(), hp[k], rtol=1e-6, atol=1e-9)
+    assert int(co.step) == 3 and co.step.is_cuda
+    assert torch.allclose(cosine_with_warmup(torch.tensor(150, device=cuda)).cpu(), cosine_with_warmup(150))
+
+
+def test_trainer_and_cli_train_on_the_card(cuda, tmp_path):
+    """The train CLI at its default device: the loss falls over 30 steps of
+    mamba2-370m at .scaled(), a second run resumes from its checkpoint."""
+    from repro_torch.core.tree import leaf_paths
+    from repro_torch.launch import train
+
+    args = ["--scaled", "--arch", "mamba2-370m", "--batch", "4", "--seq", "32", "--ckpt-dir", str(tmp_path)]
+    first = train.run(args + ["--steps", "30", "--save-every", "10"])
+    assert all(t.is_cuda for _, t in leaf_paths(first["trainer"].state))
+    assert np.mean(first["losses"][-5:]) < np.mean(first["losses"][:5]) - 0.3
+    again = train.run(args + ["--steps", "32"])
+    assert again["start_step"] == 30 and again["steps"] == 32 and np.isfinite(again["losses"]).all()
+
+
+def test_train_state_specs_place_nothing(cuda):
+    from repro_torch.configs import get_config
+    from repro_torch.launch.specs import state_specs
+
+    st = state_specs(get_config("whisper-small"))
+    assert st.params["embed"].device.type == "meta" and torch.cuda.memory_allocated() >= 0

@@ -28,9 +28,13 @@ package's: it reads 1.2e-7 on logits and 1.4e-6 on an SSD state leaf
 skip, or the RG-LRU decay or conv, reads 0.27-1.0 on logits; dropping the
 RG-LRU's sqrt(1 - a^2) input gain reads 0.006-0.012 on logits and 0.0625
 on its cache. ``python tests/torch_lm_oracle.py ARCH ...`` prints the
-readings.
+readings, and then the training readings of ``grad_readings``: the loss
+and every gradient leaf of ``jax.value_and_grad(loss_fn)`` against the
+port's ``loss_fn`` and ``torch.autograd.grad``, held to ``GRAD_LIMITS``.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -41,9 +45,13 @@ from repro.configs import get_config as jget_config
 from repro.models import decode_step as jdecode_step
 from repro.models import forward as jforward
 from repro.models import init_params as jinit_params
+from repro.models import loss_fn as jloss_fn
 from repro.models import prefill as jprefill
 from repro_torch.configs import get_config as tget_config
+from repro_torch.core.tree import leaf_paths
 from repro_torch.models import decode_step, forward, prefill
+from repro_torch.models import init_params as tinit_params
+from repro_torch.models import loss_fn as tloss_fn
 from repro_torch.models.convert import params_from_numpy, tree_to_numpy
 
 B, S, DECODE_STEPS = 2, 16, 4
@@ -131,3 +139,122 @@ if __name__ == "__main__":
     torch.set_num_threads(1)  # as the tests run
     for name in sys.argv[1:]:
         print(name, json.dumps(readings(name)), flush=True)
+        print(name, "train", json.dumps(grad_readings(name)), flush=True)
+
+
+# ------------------------------------------------------------ training
+def label_batches(cfg, seed: int = 0, seq: int = S):
+    """``batches`` plus int32 next-token labels, some of them -1 (masked)."""
+    jb, tb = batches(cfg, seed, seq)
+    r = np.random.default_rng(seed + 1)
+    labels = r.integers(0, cfg.vocab, (B, seq)).astype(np.int32)
+    labels[:, :2] = -1
+    jb["labels"], tb["labels"] = jnp.asarray(labels), torch.from_numpy(labels)
+    return jb, tb
+
+
+def train_configs(arch: str):
+    """``configs(arch)`` for the gradient comparison. recurrentgemma-2b's
+    ``.scaled()`` is two groups of its 13-layer pattern; the comparison
+    runs one group, because XLA compiles the 26 unrolled layers' gradient
+    in ~47 s on the CPU (13 layers: ~15 s)."""
+    jcfg, tcfg = configs(arch)
+    if arch == "recurrentgemma-2b":
+        n = len(tcfg.pattern) + tcfg.first_dense
+        jcfg, tcfg = dataclasses.replace(jcfg, n_layers=n), dataclasses.replace(tcfg, n_layers=n)
+    return jcfg, tcfg
+
+
+def grads_both(arch: str, loss=None, seed: int = 0) -> dict:
+    """Both packages' loss and gradients on the same weights and batch:
+    ``jax.value_and_grad(loss_fn)`` of the unrolled JAX package against the
+    port's ``loss_fn`` and ``torch.autograd.grad``. The JAX side is jitted
+    with XLA's ``xla_allow_excess_precision`` off, so that a fusion rounds
+    each bf16 op as eager JAX does (with it on, XLA keeps fused bf16 chains
+    in float32 and the loss moves by ~3e-4); that compiles in 2-4 s where
+    the eager gradient's per-op compiles take 15-35 s, and agrees with it to
+    ~1e-8 on every gradient leaf. The weights
+    are the port's draw from seed 1, carried to JAX as numpy (drawing them
+    with ``jax.random`` costs seconds of compiles per architecture).
+    ``loss`` replaces the port's ``loss_fn`` (a planted fault's copy)."""
+    jcfg, tcfg = train_configs(arch)
+    tparams = tinit_params(tcfg, torch.Generator().manual_seed(1), "cpu")
+    params = jax.tree.map(jnp.asarray, tree_to_numpy(tparams))
+    jb, tb = label_batches(jcfg, seed)
+    compiled = jax.jit(jax.value_and_grad(jloss_fn), static_argnums=1).lower(params, jcfg, jb).compile(
+        {"xla_allow_excess_precision": False})
+    jl, jg = compiled(params, jb)
+    names = [n for n, _ in leaf_paths(tparams)]
+    leaves = [t.requires_grad_() for _, t in leaf_paths(tparams)]
+    tl = (loss or tloss_fn)(tparams, tcfg, tb)
+    tg = torch.autograd.grad(tl, leaves, allow_unused=True, materialize_grads=True)
+    assert [n for n, _ in leaf_paths(jax.tree.map(np.asarray, jg))] == names
+    return {"cfg": tcfg, "names": names, "loss": (float(jl), float(tl.detach())),
+            "grads": [(f32(a), f32(b.detach())) for a, b in zip(jax.tree.leaves(jg), tg)]}
+
+
+def grad_errors(pair) -> list[float]:
+    """||port - JAX|| / ||JAX|| per gradient leaf (the absolute norm of the
+    difference where the JAX gradient is zero)."""
+    out = []
+    for j, t in pair:
+        nj = float(np.linalg.norm(j.astype(np.float64)))
+        d = float(np.linalg.norm(j.astype(np.float64) - t.astype(np.float64)))
+        out.append(d / nj if nj > 0 else d)
+    return out
+
+
+# Limits of the training comparison, by family: max |loss difference| and
+# the largest gradient leaf's ||port - JAX|| / ||JAX||. Each is a few times
+# its family's reading (``python tests/torch_lm_oracle.py ARCH`` prints
+# them; PERF.md lists both).
+GRAD_LIMITS = {
+    "dense": (3e-4, 6e-2),
+    "moe": (1e-4, 4e-2),
+    "ssm": (2e-4, 3e-2),
+    "hybrid": (1e-4, 6e-2),
+    "vlm": (1e-4, 3e-2),
+    "audio": (5e-4, 6e-2),
+}
+
+
+def grad_readings(arch: str) -> dict:
+    """max |loss difference| and the worst gradient leaf's relative error,
+    for one architecture at ``.scaled()``."""
+    r = grads_both(arch)
+    errs = grad_errors(r["grads"])
+    worst = int(np.argmax(errs))
+    return {"loss": abs(r["loss"][0] - r["loss"][1]), "grad_rel": errs[worst], "worst_leaf": r["names"][worst],
+            "limits": GRAD_LIMITS[r["cfg"].family]}
+
+
+def _port_grads(tcfg, tb, seed: int = 1):
+    params = tinit_params(tcfg, torch.Generator().manual_seed(seed), "cpu")
+    leaves = [t.requires_grad_() for _, t in leaf_paths(params)]
+    loss = tloss_fn(params, tcfg, tb)
+    return loss.detach(), torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
+
+
+def remat_pair(arch: str, policy: str) -> tuple:
+    """The port's loss and gradients with ``remat=False`` and with ``remat=True``
+    under ``policy`` on one weight draw and batch, and how many times
+    ``torch.utils.checkpoint`` ran in the second: ``((loss, grads), (loss,
+    grads), calls)``."""
+    import repro_torch.models.model as tmodel
+
+    _, tcfg = train_configs(arch)
+    _, tb = label_batches(tcfg)
+    plain = _port_grads(dataclasses.replace(tcfg, remat=False), tb)
+    calls = []
+    real = tmodel.checkpoint
+
+    def counted(*args, **kwargs):
+        calls.append(kwargs.get("context_fn"))
+        return real(*args, **kwargs)
+
+    tmodel.checkpoint = counted
+    try:
+        remat = _port_grads(dataclasses.replace(tcfg, remat=True, remat_policy=policy), tb)
+    finally:
+        tmodel.checkpoint = real
+    return plain, remat, len(calls)
