@@ -103,8 +103,9 @@ Phases, in order; any failure exits non-zero:
      restored leaf equal to it cast back, greedy tokens from the restored
      and the untouched cache (reported), one profiled offload + restore of a
      local and a global layer's K (2 of the 12 leaves);
-     11c the same cache through an in-process daemon: every container equal
-     to 11b's (a plan-cache hit carries "pcached" where the in-process one
+     11c the first two layers of that cache (4 of its 12 leaves) through an
+     in-process daemon: every container equal to 11b's (a plan-cache hit
+     carries "pcached" where the in-process one
      carries the orchestrator's "pchoice"), the restored leaves equal to
      11b's, the hits counted; 11d the ten
      architectures at .scaled(), the port's weights drawn on the CPU and
@@ -113,20 +114,30 @@ Phases, in order; any failure exits non-zero:
  12. training (repro_torch.runtime, repro_torch.optim, repro_torch.launch.train):
      12a the whole published whisper-small (12 + 12 layers, 277,976,064
      parameters from --seed) trained at the train CLI's batch 8 x seq 64:
-     one warm-up step, 8 timed steps (every loss and grad norm finite, every
+     one warm-up step, 4 timed steps (every loss and grad norm finite, every
      parameter leaf the model reads changed, the launches of the compression
      kernels counted: the kernels line's launches_by_path["train_step"]),
      one profiled step, 4 steps on one fixed batch (the loss falls), and one
      step with remat on and off (equal losses, lower peak memory with
      remat); 12b the train CLI with --ckpt-eb 1e-3 on whisper-small at
      published widths, depth cut to 1 + 1 layers, then again with one more
-     step on the same --ckpt-dir: the second run resumes from the first
+     step on the same --ckpt-dir and --mesh 1,1: the second run resumes from the first
      one's final step, its restored state within every frame's bound of the
      saved one (params, AdamW m and v), the launches of both runs counted
      (launches_by_path["train_ckpt"]); 12c one train step of the ten
      architectures at .scaled() and of the compressed pod step (2 pods,
      mamba2-370m) card vs CPU: the loss, the grad norm, AdamW's m and
-     every updated parameter within its elementwise bound.
+     every updated parameter within its elementwise bound;
+ 13. the device mesh (repro_torch.launch.mesh, DTensor placements,
+     local_map) on a one-rank NCCL process group: 13a olmoe-1b-7b at
+     published widths, depth cut to MESH_LAYERS, the plain train step
+     against the mesh step in the FFN-sharded and the expert-parallel MoE
+     form (the first step's loss and grad norm compared under deterministic
+     kernels, then timed steps, peak memory and a profiled step each); 13b
+     is 12b's second CLI run, on --mesh 1,1 (the resume places the restored
+     state; the final save gathers it through rank 0); 13c the compressed
+     pod step on a (1, 1, 1) pod mesh against the global view (equal int8
+     payloads). Every phase's seconds are printed at the end.
 Prints one JSON line of kernels, then, as the last line,
 {"ok": true, "device": {...}}. Without CUDA it exits non-zero and prints no result.
 
@@ -190,17 +201,29 @@ SERVE_BATCH = 4
 SERVE_PROMPT = 4096
 SERVE_TOKENS = 32
 SERVE_ARCH_STEPS = 4
+# 11c sends the first layers' K and V of 11b's cache through the daemon (4 of its 12 leaves; cut in PR 21)
+SERVE_DAEMON_LAYERS = 2
 # phase 12: whisper-small trained whole at the train CLI's defaults (batch 8, seq 64): timed steps after one
 # warm-up, steps on one fixed batch; 12b's CLI runs (depth cut to WHISPER_SMALL's 1 + 1 layers) take this many
 # steps, then one more after the restore
 TRAIN_BATCH = 8
 TRAIN_SEQ = 64
-TRAIN_STEPS = 8
+TRAIN_STEPS = 4  # 8 until PR 21
 TRAIN_FIXED = 4
 CLI_STEPS = 2
 # 12a: remat recomputes the forward with the same kernels; the gradients may differ only by the card's
 # unordered atomic adds (the embedding's backward), so the grad norm is held to this relative difference
 REMAT_GRAD_NORM_RTOL = 1e-5
+# phase 13: olmoe-1b-7b (src/repro/configs/olmoe_1b_7b.py, arXiv:2409.02060) at its published widths (d_model
+# 2048, 16 heads, 64 experts, top-8, d_expert 1024, vocab 50304), depth cut from 16 layers to MESH_LAYERS: the
+# float32 state of the whole model (params, grads, m and v) is ~110 GB; 4 layers peaked at 62.23 GiB, above
+# the 60 GiB this phase allows itself, so 3 (~1.4 B parameters); one warm-up step and MESH_STEPS timed steps,
+# plain and on the mesh, at the train CLI's batch and sequence length
+MESH_LAYERS = 3
+MESH_STEPS = 5
+# the mesh step against the plain step: the CPU tests' moe limits (tests/test_torch_mesh_step.py MESH_LIMITS):
+# max |loss difference| and the grad norm's relative difference
+MESH_CARD_LIMITS = (5e-4, 3e-3)
 
 
 class SmokeFailure(AssertionError):
@@ -2108,10 +2131,12 @@ def phase_serve_paging(device, smi: str, seed: int) -> tuple[dict, dict]:
 
 
 def phase_serve_daemon(device, smi: str, paged: dict) -> dict:
-    """Phase 11c: 11b's cache through an in-process port daemon on the card:
-    every container equal to 11b's in-process one (a plan-cache hit says
-    "pcached" in place of the orchestrator's "pchoice" record and is
-    otherwise byte-equal), the bound per leaf, the plan-cache hits."""
+    """Phase 11c: the first SERVE_DAEMON_LAYERS layers of 11b's cache (their
+    K and V, the first frames of 11b's stream) through an in-process port
+    daemon on the card: every container equal to 11b's in-process one (a
+    plan-cache hit says "pcached" in place of the orchestrator's "pchoice"
+    record and is otherwise byte-equal), the bound per leaf, the plan-cache
+    hits."""
     import io
 
     from repro_torch.core import frames
@@ -2120,7 +2145,9 @@ def phase_serve_daemon(device, smi: str, paged: dict) -> dict:
 
     import torch
 
-    cache, stream = paged["cache"], paged["stream"]
+    cache = {"stack": paged["cache"]["stack"][:SERVE_DAEMON_LAYERS]}
+    n = len(serve_cache_leaves(cache))
+    stream = paged["stream"]
     with CompressdServer("127.0.0.1:0", workers=2, max_request_bytes=512 << 20, device=device).start() as srv:
         sync(device)
         t0 = time.perf_counter()
@@ -2129,7 +2156,7 @@ def phase_serve_daemon(device, smi: str, paged: dict) -> dict:
         wall = time.perf_counter() - t0
     want = [f for _, f in frames.FrameReader(io.BytesIO(stream)).iter_frames()]
     got = [f for _, f in frames.FrameReader(io.BytesIO(daemon_stream)).iter_frames()]
-    check(len(got) == len(want) == 12, f"11c: {len(got)} frames")
+    check(len(want) == 12 and len(got) == n == 2 * SERVE_DAEMON_LAYERS, f"11c: {len(got)} frames of {n} leaves")
     equal = hits = 0
     for k, (g, w) in enumerate(zip(got, want)):
         if g == w:
@@ -2146,7 +2173,8 @@ def phase_serve_daemon(device, smi: str, paged: dict) -> dict:
     for (key, a), b in zip(serve_cache_leaves(restored), paged["restored"]):
         check(torch.equal(a, b), f"11c: restored leaf {key} differs from 11b's")
     worst = paged["err_over_eb"]
-    say(f"  11c the cache through an in-process daemon ({smi}): {wall:.3f} s (in process {paged['kv_s']:.3f} s), "
+    say(f"  11c the first {SERVE_DAEMON_LAYERS} layers' {n} leaves of the cache through an in-process daemon ({smi}): "
+        f"{wall:.3f} s (all 12 in process {paged['kv_s']:.3f} s), "
         f"{equal} containers byte-equal to 11b's and {hits} plan-cache hits equal to them but for the orchestrator "
         f"record (pcached for pchoice), {stats['plan_cache_hits']} hits counted, restored leaves == 11b's (max "
         f"err/eb {worst:.7f} there)")
@@ -2347,6 +2375,7 @@ def phase_train_cli(device, smi: str, seed: int, directory: pathlib.Path) -> dic
 
     import torch
 
+    from repro_torch.core.tree import tree_map
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch import train
     from repro_torch.runtime.train_loop import Trainer
@@ -2366,13 +2395,15 @@ def phase_train_cli(device, smi: str, seed: int, directory: pathlib.Path) -> dic
     train.get_config = lambda arch: dataclasses.replace(real_config(arch), **cut)
     train.Trainer = Recording
     args = ["--arch", "whisper-small", "--ckpt-eb", f"{CKPT_EB:g}", "--ckpt-dir", str(directory), "--save-every", "1000"]
-    say(f"phase 12b ({smi}): python -m repro_torch.launch.train {' '.join(args)} --steps {CLI_STEPS}, then --steps "
-        f"{CLI_STEPS + 1}; whisper-small at published widths, depth cut to {cut}")
+    say(f"phase 12b ({smi}): python -m repro_torch.launch.train {' '.join(args)} --steps {CLI_STEPS}, then (13b) "
+        f"--steps {CLI_STEPS + 1} --mesh 1,1; whisper-small at published widths, depth cut to {cut}")
     try:
         reset_launch_counts()
         first = train.run(args + ["--steps", str(CLI_STEPS)])
         first_launches = launch_counts()
-        second = train.run(args + ["--steps", str(CLI_STEPS + 1)])
+        # 13b: the resume places the restored state on a one-rank (data, model) mesh (NCCL on the card), and the
+        # final save gathers the placed state through rank 0
+        second = train.run(args + ["--steps", str(CLI_STEPS + 1), "--mesh", "1,1"])
         launches = launch_counts()
     finally:
         train.get_config, train.Trainer = real_config, real_trainer
@@ -2384,18 +2415,27 @@ def phase_train_cli(device, smi: str, seed: int, directory: pathlib.Path) -> dic
     check(all(map(math.isfinite, first["losses"] + second["losses"])), "12b: non-finite loss")
     step_dir = directory / f"step_{CLI_STEPS:08d}"
     manifest = json.loads((step_dir / "manifest.json").read_text())
-    worst = check_restored(tr1.state, tr2.restored, manifest, step_dir, "12b")
+    placed = [t for _, t in train_leaves(tr2.restored)]
+    check(all(type(t).__name__ == "DTensor" for t in placed), "13b: the resumed state is not placed on the mesh")
+    restored = tree_map(lambda t: t.full_tensor(), tr2.restored)
+    worst = check_restored(tr1.state, restored, manifest, step_dir, "13b")
+    final_dir = directory / f"step_{CLI_STEPS + 1:08d}"
+    final = json.loads((final_dir / "manifest.json").read_text())
+    check(sorted(final["leaves"]) == sorted(manifest["leaves"]) and final["step"] == CLI_STEPS + 1,
+          f"13b: the placed final save holds {sorted(final['leaves'])[:3]}... at step {final['step']}")
     n_frames = sum(m.get("n_frames", 0) for m in manifest["leaves"].values())
     n_state = sum(t.numel() * t.element_size() for _, t in train_leaves(tr1.state))
     save_s = first["wall_s"] - sum(first["step_s"])
     say(f"  run 1: {CLI_STEPS} steps ({[round(x * 1e3, 1) for x in first['step_s']]} ms), final save of "
         f"{n_state / 1e6:.1f} MB (params + m + v + step) {save_s:.3f} s ({n_state / 1e6 / save_s:.1f} MB/s), CR "
         f"{manifest['cr']}, {n_frames} v3 frames, {len(manifest['leaves'])} leaves")
-    say(f"  run 2: restored step {second['start_step']} in {tr2.restore_s:.3f} s "
-        f"({n_state / 1e6 / tr2.restore_s:.1f} MB/s), max err/eb {worst:.7f} over every frame, 1 step, final save; "
-        f"wall {second['wall_s']:.3f} s; losses {first['losses']} then {second['losses']}")
+    say(f"  run 2 (13b, --mesh 1,1): restored step {second['start_step']} placed on the mesh in {tr2.restore_s:.3f} s "
+        f"({n_state / 1e6 / tr2.restore_s:.1f} MB/s), max err/eb {worst:.7f} over every frame, 1 step, final save of "
+        f"the placed state (CR {final['cr']}); wall {second['wall_s']:.3f} s; losses {first['losses']} then "
+        f"{second['losses']}")
     say(f"  launches: run 1 {first_launches}; both runs {launches}")
     return {"widths": WHISPER_SMALL, "state_mb": n_state / 1e6, "save_s": save_s, "restore_s": tr2.restore_s,
+            "placed_final_cr": final["cr"],
             "cr": manifest["cr"], "frames": n_frames, "err_over_eb": worst, "launches": launches,
             "first_launches": first_launches, "losses": first["losses"] + second["losses"],
             "walls_s": [first["wall_s"], second["wall_s"]]}
@@ -2555,6 +2595,155 @@ def phase_train(device, smi: str, seed: int) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ phase 13
+def phase_mesh_steps(device, mesh, smi: str, seed: int) -> dict:
+    """Phase 13a: olmoe-1b-7b at published widths, MESH_LAYERS layers, plain
+    step (slice 10) then the mesh step on ``mesh`` from the same seed's
+    state and the same batches, for the FFN-sharded and the
+    expert-parallel MoE: one warm-up step (from the seed's state, under
+    torch.use_deterministic_algorithms: the two kinds' losses and grad
+    norms compared) and MESH_STEPS timed steps (the default kernels), the
+    peak memory, one profiled step."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config, param_count
+    from repro_torch.data.synthetic import TokenPipeline
+    from repro_torch.runtime.steps import batch_to, make_train_state, make_train_step
+
+    cfg0 = dataclasses.replace(get_config("olmoe-1b-7b"), n_layers=MESH_LAYERS)
+    data = TokenPipeline(cfg0.vocab, TRAIN_BATCH, TRAIN_SEQ, seed=seed)
+    batches = [batch_to(next(data), device) for _ in range(1 + MESH_STEPS)]
+    say(f"phase 13a ({smi}): olmoe-1b-7b (src/repro/configs/olmoe_1b_7b.py, arXiv:2409.02060: d_model {cfg0.d_model}, "
+        f"{cfg0.n_heads} heads, {cfg0.n_experts} experts, top-{cfg0.top_k}, d_expert {cfg0.d_expert}, vocab {cfg0.vocab}), "
+        f"depth cut from 16 layers to {MESH_LAYERS} (param_count {param_count(cfg0)}); batch {TRAIN_BATCH} x seq "
+        f"{TRAIN_SEQ}; plain step, then the mesh step on {dict(mesh.shape)}")
+    out = {}
+    for form, ep in (("ffn_sharded", False), ("expert_parallel", True)):
+        cfg = dataclasses.replace(cfg0, moe_expert_parallel=ep)
+        res = {}
+        for kind in ("plain", "mesh"):
+            m = mesh if kind == "mesh" else None
+            torch.cuda.empty_cache() if device.type == "cuda" else None
+            peak_reset(device)
+            state = make_train_state(cfg, torch.Generator(device=device).manual_seed(seed), device=device, mesh=m)
+            step = make_train_step(cfg, m, lr=1e-3)
+            # the compared first step runs deterministic kernels: the MoE combine's index_add_ otherwise adds
+            # each token's top-8 bf16 contributions in the order the card's atomics land (a bf16 ulp apart,
+            # then a routing flip downstream), run to run and kind to kind alike
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                state, warm_ms, loss, gnorm = train_step_run(step, state, batches[0], device)
+            finally:
+                torch.use_deterministic_algorithms(False)
+            ms = []
+            for b in batches[1:]:
+                state, t, _, _ = train_step_run(step, state, b, device)
+                ms.append(t)
+            peak = peak_gib(device)
+            mean = sum(ms) / len(ms)
+            prof = profile_run(lambda: step(state, batches[1]), f"13a: one {kind} train step, {form} MoE ({smi})")
+            res[kind] = {"warm_ms": warm_ms, "loss": loss, "grad_norm": gnorm, "step_ms": ms, "mean_step_ms": mean,
+                         "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (mean / 1e3), "peak_gib": peak, "profile": prof}
+            say(f"  13a {form} {kind}: deterministic warm-up {warm_ms:.1f} ms (loss {loss:.6f}, grad norm {gnorm:.6f}); {MESH_STEPS} "
+                f"steps {mean:.1f} ms a step (min {min(ms):.1f}, max {max(ms):.1f}), "
+                f"{res[kind]['tokens_per_s']:.1f} tokens/s, peak {peak:.2f} GiB ({smi})")
+            del state, step
+        p, q = res["plain"], res["mesh"]
+        dl = abs(p["loss"] - q["loss"])
+        dn = abs(p["grad_norm"] - q["grad_norm"]) / p["grad_norm"]
+        check(math.isfinite(q["loss"]) and dl < MESH_CARD_LIMITS[0] and dn < MESH_CARD_LIMITS[1],
+              f"13a {form}: mesh vs plain loss {dl}, grad norm {dn} (limits {MESH_CARD_LIMITS})")
+        res["bit_equal"] = p["loss"] == q["loss"] and p["grad_norm"] == q["grad_norm"]
+        res["extra_ms"] = q["mean_step_ms"] - p["mean_step_ms"]
+        say(f"  13a {form}: mesh vs plain first step |loss diff| {dl:.3e} (< {MESH_CARD_LIMITS[0]}), grad norm rel "
+            f"{dn:.3e} (< {MESH_CARD_LIMITS[1]}), bit-equal {res['bit_equal']}; the mesh step takes "
+            f"{res['extra_ms']:+.1f} ms a step ({q['profile']['device_ops']} device kernels and copies against "
+            f"{p['profile']['device_ops']}, idle share {q['profile']['device_idle_share']:.3f} against "
+            f"{p['profile']['device_idle_share']:.3f})")
+        out[form] = res
+    return out
+
+
+def phase_mesh_pods(device, smi: str, seed: int) -> dict:
+    """Phase 13c: the compressed pod step on a (1, 1, 1) ("pod", "data",
+    "model") mesh against slice 10's global view at one pod (mamba2-370m at
+    .scaled(), as 12c): the int8 payloads equal, the loss and every updated
+    parameter within 12c's limits."""
+    import types
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_map
+    from repro_torch.data.synthetic import TokenPipeline
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim import grad_compress
+    from repro_torch.runtime import steps
+
+    mesh = make_mesh((1, 1, 1), ("pod", "data", "model"), device_type=device.type)
+    cfg = get_config("mamba2-370m").scaled()
+    batch = next(TokenPipeline(cfg.vocab, 4, 32, seed=seed))
+    real_ex, real_q = steps.pod_exchange, grad_compress.quantize_shard
+    gv_q, mesh_q = [], []
+    def spy_global(g, r):
+        out = real_ex(g, r)
+        gv_q.append(out[2][0])  # the one pod's int8 payload
+        return out
+
+    def spy(t, amax=None):  # the payloads the pod step quantizes for the exchange
+        q, scale = real_q(t, amax)
+        mesh_q.append(q)
+        return q, scale
+
+    steps.pod_exchange, grad_compress.quantize_shard = spy_global, spy
+    try:
+        host = steps.make_train_state(cfg, torch.Generator(device=device).manual_seed(seed), npods=1, device=device)
+        gv_state, gv = steps.make_train_step(cfg, types.SimpleNamespace(shape={"pod": 1}), lr=1e-3,
+                                             compress_pods=True)(host, batch)
+        placed = steps.make_train_state(cfg, torch.Generator(device=device).manual_seed(seed), npods=1, device=device,
+                                        mesh=mesh)
+        new, met = steps.make_train_step(cfg, mesh, lr=1e-3, compress_pods=True)(placed, batch)
+    finally:
+        steps.pod_exchange, grad_compress.quantize_shard = real_ex, real_q
+    check(len(gv_q) == len(mesh_q) > 0, f"13c: {len(gv_q)} global-view payloads, {len(mesh_q)} exchanged")
+    same = sum(bool(torch.equal(a, b)) for a, b in zip(gv_q, mesh_q))
+    check(same == len(gv_q), f"13c: {len(gv_q) - same} of {len(gv_q)} int8 payloads differ from the global view's")
+    full = tree_map(lambda t: t.full_tensor(), new)
+    dl = abs(float(met["loss"]) - float(gv["loss"]))
+    pe = first_step_param_errors(full, tree_map(lambda t: t.cpu(), gv_state), lr=1e-3)
+    check(dl < TRAIN_CARD_LIMITS[0] and pe["worst_over_bound"] <= 1.0,
+          f"13c: pod step vs global view loss {dl} (limit {TRAIN_CARD_LIMITS[0]}), parameters {pe}")
+    say(f"  13c compressed pod step on {dict(mesh.shape)} vs the global view at 1 pod, mamba2-370m .scaled() ({smi}): "
+        f"{same} of {len(gv_q)} int8 payloads equal, |loss diff| {dl:.3e} (< {TRAIN_CARD_LIMITS[0]}), worst updated "
+        f"parameter {pe['worst_over_bound']:.6f} of its bound")
+    return {"payloads": len(gv_q), "payloads_equal": same, "loss_diff": dl, "params": pe}
+
+
+def phase_mesh(device, smi: str, seed: int) -> dict:
+    """Phase 13: the device mesh on one card: a one-rank NCCL process group
+    (gloo on the CPU), 13a the mesh train step of olmoe-1b-7b against the
+    plain step, 13c the compressed pod step over a real pod axis (13b, the
+    elastic restore, runs as 12b's second CLI run)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_process_group, make_mesh
+
+    t13 = time.perf_counter()
+    init_process_group(device.type)
+    mesh = make_mesh((1, 1), ("data", "model"), device_type=device.type)
+    say(f"phase 13 ({smi}): the device mesh (repro_torch.launch.mesh, DTensor placements, local_map) on {device}: "
+        f"{mesh}, backend {dist.get_backend()}, world {dist.get_world_size()}")
+    out = {"steps": phase_mesh_steps(device, mesh, smi, seed)}
+    torch.cuda.empty_cache() if device.type == "cuda" else None
+    out["pods"] = phase_mesh_pods(device, smi, seed)
+    out["wall_s"] = time.perf_counter() - t13
+    say(f"phase 13 took {out['wall_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2579,6 +2768,13 @@ def main() -> int:
 
     device = torch.device("cuda", 0)
     results: dict = {}
+    phase_s: dict = {}
+    last = [t_start]
+
+    def mark(name: str) -> None:
+        now = time.perf_counter()
+        phase_s[name] = now - last[0]
+        last[0] = now
 
     # 1. the card
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2598,6 +2794,7 @@ def main() -> int:
     t0 = time.perf_counter()
     secs = build()
     say(f"build: {time.perf_counter() - t0:.1f} s ({', '.join(f'{k} {v:.1f} s' for k, v in secs.items())})")
+    mark("1-2 card and build")
     for name in secs:
         for line in ptxas_report(build_dir() / f"{name}.log"):
             say(f"  ptxas {name}: {line}")
@@ -2607,6 +2804,7 @@ def main() -> int:
     x = nyx_like(args.side, args.seed, device)
     torch.cuda.synchronize()
     results["planner"] = phase_planner(x, device)
+    mark("3 kernels and planner")
 
     # 4. the paths at full size
     comps, bufs = {}, {}
@@ -2624,6 +2822,7 @@ def main() -> int:
         f"launches {results['paths']['cusz_hi_autoplan']['launches']}")
     results["autoplan"] = {"plan": str(ap), "candidates": len(ap.candidates), "pchoice": ap_header["pchoice"]}
     results["orchestrator"] = phase_orchestrator(pipelines.decode(sections[0], device=device))
+    mark("4 paths")
 
     # 5. card path vs the port's CPU path
     xs = smooth_big()
@@ -2652,6 +2851,7 @@ def main() -> int:
             f"card container on cpu err/eb {r96:.7f}")
         results["card_vs_cpu"][name] = {"agree": agree, "bytes_equal": bc == bh, "err_over_eb": r96}
     results["modes_96"] = phase_modes_96(xs, device)
+    mark("5 card vs cpu")
 
     # 6. kernel times at the paths' shapes
     im = interp_main_shapes(x, header, iters=10)
@@ -2725,6 +2925,7 @@ def main() -> int:
 
     for k in kernels:
         k["launches_by_path"] = {name: launches[name][k["name"]] for name in PATHS}
+    mark("6 kernel times")
 
     # 7. where the time goes
     results["profile"] = {name: phase_profile(comps[name], x, name) for name in PATHS}
@@ -2743,8 +2944,10 @@ def main() -> int:
         comp, x, label, compress=lambda f: core.shard_compress(f, [device] * V3_CHUNKS),
         decompress=lambda b: core.shard_decompress(b, workers=V3_CHUNKS, compressor=comp, out="device"))
 
+    mark("7 profiles")
     # 8. frames v3 and the data layer
     results["v3"] = phase_v3(x, device, smi, args.seed)
+    mark("8 v3")
     for k in kernels:
         k["launches_by_path"]["v3_chunks"] = results["v3"]["chunks"]["launches"][k["name"]]
 
@@ -2754,12 +2957,14 @@ def main() -> int:
     results["phase9_s"] = time.perf_counter() - t9
     results["wall_s"] = time.perf_counter() - t_start
     say(f"phase 9 took {results['phase9_s']:.1f} s; the script {results['wall_s']:.1f} s from its start (build included)")
+    mark("9 checkpoint")
     for k in kernels:
         k["launches_by_path"]["checkpoint"] = results["checkpoint"]["launches"][k["name"]]
 
     # 10. the compressd service
     results["compressd"] = phase_compressd(x, bufs["main"], results["paths"]["main"], results["checkpoint"], xs, smi,
                                            args.seed)
+    mark("10 compressd")
     for k in kernels:
         k["launches_by_path"]["compressd"] = results["compressd"]["field"]["launches"][k["name"]]
         k["launches_by_path"]["grad_packer"] = results["compressd"]["grad_packer"]["launches"][k["name"]]
@@ -2767,17 +2972,25 @@ def main() -> int:
     # 11. serving
     results["serve"] = phase_serve(device, smi, args.seed)
     results["phase11_end_s"] = time.perf_counter() - t_start
+    mark("11 serve")
     for k in kernels:
         k["launches_by_path"]["serve"] = results["serve"]["entry"]["launches"][k["name"]]
         k["launches_by_path"]["serve_kv"] = results["serve"]["paging"]["launches"][k["name"]]
 
-    # 12. training
+    # 12. training (12b's resume runs on a one-rank mesh: 13b)
     results["train"] = phase_train(device, smi, args.seed)
-    results["wall_s"] = time.perf_counter() - t_start
-    say(f"the script took {results['wall_s']:.1f} s from its start (build included)")
+    mark("12 training")
     for k in kernels:
         k["launches_by_path"]["train_step"] = results["train"]["whole"]["launches"][k["name"]]
         k["launches_by_path"]["train_ckpt"] = results["train"]["cli"]["launches"][k["name"]]
+
+    # 13. the device mesh
+    results["mesh"] = phase_mesh(device, smi, args.seed)
+    mark("13 mesh")
+    results["wall_s"] = time.perf_counter() - t_start
+    results["phase_s"] = phase_s
+    say("seconds by phase: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
+    say(f"the script took {results['wall_s']:.1f} s from its start (build included)")
     if args.out:
         out = pathlib.Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)

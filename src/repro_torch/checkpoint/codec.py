@@ -62,6 +62,7 @@ except ImportError:  # pragma: no cover - depends on the environment
 from ..core import Compressor, CompressorSpec
 from ..core import distributed as dist
 from ..core.lossless import portable_pipelines
+from ..core.frames import frame_table
 from ..core.retry import RetryingWriter
 from ..launch.compressd import CompressdClient
 
@@ -267,6 +268,30 @@ def encode_tensor(x, *, eb: float = 0.0, spec=None, device=None) -> tuple[bytes,
     bio = io.BytesIO()
     meta = encode_tensor_to(bio, x, eb=eb, spec=spec, device=device)
     return bio.getvalue(), meta
+
+
+def decode_rows(payload: bytes, meta: dict, lo: int, hi: int, *, device=None) -> torch.Tensor:
+    """Rows ``[lo, hi)`` of a leaf along its first axis, on ``device``. An
+    error-bounded leaf's v3 frames split its 2-D field's rows, so only the
+    frames holding those rows decode; any other leaf decodes whole (one
+    zstd/zlib stream, or one container)."""
+    shape = tuple(int(s) for s in meta["shape"])
+    if meta["mode"] != "cuszhi3" or not shape:
+        return decode_tensor(payload, meta, device=device)[lo:hi]
+    dev = _device(device)
+    inner = int(np.prod(shape[1:]))
+    w = int(meta["field_shape"][1])
+    start, end = lo * inner, hi * inner
+    r0, r1 = start // w, -(-end // w)
+    header, _ = frame_table(payload)
+    offs = np.concatenate([[0], np.cumsum(header["chunk_sizes"])]).astype(int)
+    frames = [i for i in range(len(offs) - 1) if offs[i] < r1 and offs[i + 1] > r0]
+    with span("checkpoint.decode_leaf"):
+        comp = Compressor(CompressorSpec(eb=meta["eb"], pipeline=meta.get("pipeline", _LEGACY_EB_PIPELINE),
+                                         autotune=False), device=dev)
+        rows = comp.decompress(payload, frames=frames, out="device").reshape(-1)
+        first = int(offs[frames[0]]) * w
+        return rows[start - first: end - first].reshape((hi - lo,) + shape[1:]).to(_torch_dtype(meta["dtype"]))
 
 
 def decode_tensor(payload: bytes, meta: dict, *, device=None) -> torch.Tensor:

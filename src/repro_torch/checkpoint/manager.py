@@ -21,8 +21,20 @@ does (``{"a": OptState(m, v, step)}`` gives ``a_m``, ``a_v``, ``a_step``).
 Device: :func:`save`, :func:`restore` and :class:`AsyncCheckpointer` run
 on the card unless given ``device="cpu"``, and raise where CUDA is absent.
 Error-bounded leaves compress where they live; :func:`restore` returns
-tensors on ``device``. Placement onto a device mesh (the JAX package's
-``shardings=``) waits for the port's mesh stack.
+tensors on ``device``.
+
+Device meshes: a tree that holds DTensors (a state placed on a
+``launch.mesh`` mesh) saves its leaves' full tensors, gathered on the
+calling thread in leaf order on every rank; rank 0 writes them and the
+other ranks wait for its outcome, so the files are byte for byte a
+single-device save of the same values and every rank returns the same
+manifest or raises. :func:`restore` places each leaf by its
+``shardings=`` entry (a :class:`repro_torch.runtime.partitioning.NamedSharding`,
+the JAX package's elastic restore onto a mesh of any shape) or, where
+none is given, as the template's DTensor leaf is placed. Where a rank's
+block of an error-bounded leaf is whole rows of its first axis, it
+decodes only the v3 frames that hold them; otherwise it decodes the leaf
+and keeps its block (a lossless leaf is one zstd/zlib stream).
 
 Damage model: every leaf file carries a whole-payload CRC32 in the
 manifest. ``restore(..., strict=False)`` turns a damaged checkpoint into
@@ -41,6 +53,7 @@ inside.
 """
 from __future__ import annotations
 
+import collections
 import json
 import os
 import pathlib
@@ -58,7 +71,8 @@ from ..core.compressor import DEVICE_ERRORS
 from ..core.errors import CheckpointDamageError
 from ..core.retry import retry_call
 from ..core.tree import leaf_paths, tree_map
-from .codec import _as_leaf, _device, _nbytes, _torch_dtype, decode_tensor, encode_tensor_to
+from ..runtime.partitioning import is_placed, mesh_device
+from .codec import _as_leaf, _device, _nbytes, _torch_dtype, decode_rows, decode_tensor, encode_tensor_to
 
 _MANIFEST = "manifest.json"
 
@@ -88,10 +102,62 @@ def _sweep_stale_tmp(directory: pathlib.Path) -> list[str]:
     return removed
 
 
+# ------------------------------------------------------------ device meshes
+def _placed(tree) -> bool:
+    return any(is_placed(leaf) for _, leaf in leaf_paths(tree))
+
+
+def _gather(tree, keep: bool):
+    """``[(key, leaf)]`` with every DTensor leaf's full tensor, gathered in
+    leaf order (a collective per placed leaf: every rank calls this);
+    ``keep=False`` drops the gathered tensors as they come."""
+    out = []
+    for key, leaf in leaf_paths(tree):
+        full = leaf.full_tensor() if is_placed(leaf) else leaf
+        out.append((key, full if keep else None))
+    return out
+
+
+def _rank0_outcome(result, err):
+    """Rank 0's manifest (or error) on every rank: the other ranks wait here
+    until rank 0 has written."""
+    import torch.distributed as dist
+
+    box = [result if err is None else {"error": repr(err)}]
+    dist.broadcast_object_list(box, src=0)
+    if err is not None:
+        raise err
+    if "error" in box[0]:
+        raise RuntimeError(f"rank 0 failed to save the checkpoint: {box[0]['error']}")
+    return box[0]
+
+
 # -------------------------------------------------------------------- save
 def save(tree, directory: str | os.PathLike, step: int, *, eb: float = 0.0, device=None) -> dict:
     """Synchronous atomic save. Returns the manifest. ``device``: where the
-    error-bounded leaves compress (the card unless ``"cpu"``)."""
+    error-bounded leaves compress (the card unless ``"cpu"``; a tree of
+    DTensors: its mesh's device). A tree of DTensors is gathered and
+    written by rank 0 (see the module's docstring); every rank must call
+    this."""
+    if _placed(tree):
+        import torch.distributed as dist
+
+        writer = dist.get_rank() == 0
+        if device is None:  # the mesh's device, as restore's
+            device = mesh_device(next(leaf for _, leaf in leaf_paths(tree) if is_placed(leaf)).device_mesh)
+        leaves = _gather(tree, keep=writer)
+        result, err = None, None
+        if writer:
+            try:
+                result = _write(leaves, directory, step, eb=eb, device=device)
+            except Exception as e:  # noqa: BLE001 - re-raised here, and reported to the other ranks
+                err = e
+        del leaves
+        return _rank0_outcome(result, err)
+    return _write(leaf_paths(tree), directory, step, eb=eb, device=device)
+
+
+def _write(leaves, directory, step: int, *, eb: float, device) -> dict:
     dev = _device(device)
     directory = pathlib.Path(directory)
     directory.mkdir(parents=True, exist_ok=True)
@@ -107,7 +173,7 @@ def save(tree, directory: str | os.PathLike, step: int, *, eb: float = 0.0, devi
         with span("checkpoint.save"):
             manifest = {"step": int(step), "leaves": {}, "format": 2}
             raw_total = comp_total = 0
-            for key, leaf in leaf_paths(tree):
+            for key, leaf in leaves:
                 arr = _as_leaf(leaf)
                 fn = f"{key}.bin"
                 # error-bounded leaves stream v3 frames into the file as each chunk
@@ -157,8 +223,9 @@ def latest_step(directory: str | os.PathLike) -> int | None:
 
 
 # ----------------------------------------------------------------- restore
-def _load_leaf(step_dir: pathlib.Path, meta: dict, device: torch.device) -> torch.Tensor:
-    """Read + CRC-verify + decode one leaf file; raises on any damage."""
+def _load_leaf(step_dir: pathlib.Path, meta: dict, device: torch.device, rows=None) -> torch.Tensor:
+    """Read + CRC-verify + decode one leaf file (``rows``: only that
+    ``(lo, hi)`` range of its first axis); raises on any damage."""
     payload = (step_dir / meta["file"]).read_bytes()
     want = meta.get("crc32")
     if want is not None:
@@ -167,6 +234,8 @@ def _load_leaf(step_dir: pathlib.Path, meta: dict, device: torch.device) -> torc
             raise CheckpointDamageError(
                 f"{meta['file']}: payload crc32 mismatch (expected {int(want):#010x}, got {got:#010x})"
             )
+    if rows is not None:
+        return decode_rows(payload, meta, *rows, device=device)
     return decode_tensor(payload, meta, device=device)
 
 
@@ -180,13 +249,61 @@ def _lost_leaf(tmpl, meta: dict, device: torch.device) -> torch.Tensor:
     return torch.zeros(tuple(meta["shape"]), dtype=_torch_dtype(meta["dtype"]), device=device)
 
 
+def _target(tmpl, sh):
+    """``(device_mesh, placements)`` of a restored leaf, or None (a plain tensor)."""
+    if sh is not None:
+        return sh.mesh.device_mesh, sh.placements
+    if is_placed(tmpl):
+        return tmpl.device_mesh, tuple(tmpl.placements)
+    return None
+
+
+def _put(arr: torch.Tensor, target):
+    """``arr`` (the whole leaf, on this rank) placed: this rank's block."""
+    from torch.distributed.tensor import distribute_tensor
+
+    dm, pl = target
+    return distribute_tensor(arr.to(mesh_device(dm)), dm, pl, src_data_rank=None)
+
+
+def _block_rows(meta: dict, target):
+    """``(lo, hi)`` where this rank's block of an error-bounded leaf is whole
+    rows of its first axis (and not all of them): its frames' rows, which
+    decode on their own. None otherwise."""
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    shape = tuple(int(s) for s in meta["shape"])
+    if target is None or meta["mode"] != "cuszhi3" or not shape:
+        return None
+    size, off = compute_local_shape_and_global_offset(shape, *target)
+    if tuple(size[1:]) != shape[1:] or size[0] == shape[0]:
+        return None
+    return int(off[0]), int(off[0]) + int(size[0])
+
+
+def _put_block(block: torch.Tensor, shape: tuple, target):
+    """This rank's ``block`` of a leaf of ``shape``, placed."""
+    from torch.distributed.tensor import DTensor
+
+    dm, pl = target
+    stride = torch.empty(shape, device="meta").stride()
+    return DTensor.from_local(block.to(mesh_device(dm)), dm, pl, run_check=False, shape=torch.Size(shape),
+                              stride=stride)
+
+
 def restore(tree_like, directory: str | os.PathLike, step: int | None = None, *, device=None,
-            strict: bool = True):
+            strict: bool = True, shardings=None):
     """Restore into the structure of ``tree_like``; returns ``(tree, manifest)``
     with every leaf a tensor on ``device`` (the card unless ``"cpu"``).
     Template leaves may be tensors on the ``meta`` device (shape only, as
     ``jax.ShapeDtypeStruct`` in the JAX package), concrete tensors or arrays,
     or scalars.
+
+    ``shardings``: a tree of :class:`repro_torch.runtime.partitioning.NamedSharding`
+    (or ``None`` entries) matching ``tree_like``: each leaf comes back as a
+    DTensor placed by it, on its mesh's device, whatever mesh wrote the
+    checkpoint (elastic restore). A template leaf that is itself a DTensor
+    is placed as it is placed.
 
     ``strict=True`` (default): any damaged leaf — CRC mismatch, truncated
     file, undecodable container — raises
@@ -204,7 +321,14 @@ def restore(tree_like, directory: str | os.PathLike, step: int | None = None, *,
 
     A kernel or device error (``DEVICE_ERRORS``) propagates under either mode.
     """
-    dev = _device(device)
+    template = leaf_paths(tree_like)
+    flat_sh = [None] * len(template) if shardings is None else [s for _, s in leaf_paths(shardings)]
+    if len(flat_sh) != len(template):
+        raise ValueError(f"{len(template)} template leaves, {len(flat_sh)} shardings")
+    targets = [_target(tmpl, sh) for (_, tmpl), sh in zip(template, flat_sh)]
+    placed_on = next((mesh_device(t[0]) for t in targets if t is not None), None)
+    # placed leaves decode on their mesh's device unless told otherwise
+    dev = _device(device if device is not None or placed_on is None else placed_on)
     directory = pathlib.Path(directory)
     step = step if step is not None else latest_step(directory)
     if step is None:
@@ -220,7 +344,7 @@ def restore(tree_like, directory: str | os.PathLike, step: int | None = None, *,
         # the requested step's manifest itself is gone/corrupt: restore the
         # newest earlier step wholesale and report the demotion
         prev = older[-1]
-        tree, manifest = restore(tree_like, directory, prev, device=dev, strict=False)
+        tree, manifest = restore(tree_like, directory, prev, device=dev, strict=False, shardings=shardings)
         salvage = manifest.setdefault("salvage", {"damaged": {}, "fallback_steps": {}, "lost": []})
         salvage["damaged"]["<manifest>"] = f"step {step} manifest unreadable: {e!r}"
         salvage["fallback_steps"]["<manifest>"] = prev
@@ -229,10 +353,11 @@ def restore(tree_like, directory: str | os.PathLike, step: int | None = None, *,
     salvage = {"damaged": {}, "fallback_steps": {}, "lost": []}
     leaves = []
     with span("checkpoint.restore"):
-        for key, tmpl in leaf_paths(tree_like):
+        for (key, tmpl), target in zip(template, targets):
             meta = manifest["leaves"][key]
+            rows = _block_rows(meta, target)
             try:
-                arr = _load_leaf(d, meta, dev)
+                arr = _load_leaf(d, meta, dev, rows)
             except DEVICE_ERRORS:
                 raise  # the card failed, not the bytes: no older step stands in
             except Exception as e:  # noqa: BLE001 - every damage mode funnels into the salvage path
@@ -253,8 +378,15 @@ def restore(tree_like, directory: str | os.PathLike, step: int | None = None, *,
                     break
                 if arr is None:
                     salvage["lost"].append(key)
-                    arr = _lost_leaf(tmpl, meta, dev)
-            leaves.append(arr)
+                    # a placed template's stand-in is gathered (every rank finds the same files lost)
+                    arr = _lost_leaf(tmpl.full_tensor() if is_placed(tmpl) else tmpl, meta, dev)
+                rows = None  # an older step's copy, or the stand-in: the whole leaf
+            if target is None:
+                leaves.append(arr)
+            elif rows is not None:
+                leaves.append(_put_block(arr, tuple(meta["shape"]), target))
+            else:
+                leaves.append(_put(arr, target))
     if salvage["damaged"]:
         manifest = dict(manifest, salvage=salvage)
     it = iter(leaves)
@@ -309,6 +441,14 @@ class AsyncCheckpointer:
     transient ``OSError`` (NFS blip, ENOSPC race) costs a backoff, not
     the snapshot; the partial tmp dir of a failed attempt is swept by the
     retry's own :func:`save`.
+
+    A tree of DTensors is gathered on the calling thread in leaf order (the
+    background thread issues no collective, so it cannot cross the
+    training thread's), and only rank 0 queues the snapshot; every rank
+    must call :meth:`submit`, :meth:`wait` and :meth:`close`. All three
+    raise on every rank if a save of rank 0's failed (``submit`` before it
+    gathers, so no rank is left waiting in a collective); the last two
+    wait for rank 0's saves first.
     """
 
     def __init__(self, directory: str | os.PathLike, *, eb: float = 0.0, device=None):
@@ -319,6 +459,7 @@ class AsyncCheckpointer:
         self._err: Exception | None = None
         self._submit_lock = threading.Lock()
         self._closed = False
+        self._ranks = False  # a placed tree was submitted: wait/close agree with rank 0
         self._thread = threading.Thread(target=self._worker, daemon=True)
         self._thread.start()
 
@@ -350,10 +491,28 @@ class AsyncCheckpointer:
             err, self._err = self._err, None
             raise err  # the exception object still carries the worker traceback
 
+    def _agree(self):
+        """Surface a stored error; after a placed submit, on every rank."""
+        if not self._ranks:
+            self._raise_pending()
+            return
+        err, self._err = self._err, None
+        _rank0_outcome({}, err)
+
     def submit(self, tree, step: int):
-        self._raise_pending()
+        placed = _placed(tree)
+        self._ranks = self._ranks or placed
+        self._agree()  # before any gather: a rank-0 save that failed stops every rank here
         if self._closed:
             raise RuntimeError("submit() on a closed AsyncCheckpointer")
+        if placed:
+            import torch.distributed as dist
+
+            writer = dist.get_rank() == 0
+            leaves = _gather(tree, keep=writer)
+            if not writer:
+                return
+            tree = collections.OrderedDict(leaves)  # leaf names as keys: the same files
         host_tree, ready = _snapshot(tree)  # snapshot now
         # serialize submitters: the old drop-then-put could race two callers
         # into a Full queue (both drop, both put, second put explodes) or
@@ -375,7 +534,7 @@ class AsyncCheckpointer:
         """Block until every submitted snapshot is saved (or failed), then
         surface any worker exception with its original traceback."""
         self._q.join()
-        self._raise_pending()
+        self._agree()
 
     def close(self, timeout: float = 60.0):
         """Drain, stop the worker, surface any stored error. Idempotent —
@@ -391,4 +550,4 @@ class AsyncCheckpointer:
                     f"AsyncCheckpointer worker did not exit within {timeout}s; "
                     "a save may still be in flight"
                 )
-        self._raise_pending()
+        self._agree()

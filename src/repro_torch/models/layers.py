@@ -18,6 +18,8 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
+from ..runtime import partitioning as part
+from ..runtime.partitioning import P
 
 # TF32 keeps ~3 decimal digits; the float32 products above must stay float32
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -133,6 +135,11 @@ def _qkv(x, p, cfg: ModelConfig, positions, use_rope=True):
     if use_rope:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
+    q = part.shard(q, "batch", "seq", "heads", None)
+    # K/V use their own seq rule: under sequence-TP ("seq"->model) they stay
+    # replicated along seq so blockwise tiles slice without per-tile reshards
+    k = part.shard(k, "batch", "seq_kv", "kv_heads", None)
+    v = part.shard(v, "batch", "seq_kv", "kv_heads", None)
     return q, k, v
 
 
@@ -223,6 +230,25 @@ def _attn_core(q, k, v, cfg, kind):
     return _attn_full(q, k, v, cfg, kind)
 
 
+def _attn_placed(q, k, v, cfg, kind):
+    """:func:`_attn_core` of placed q, k, v. Where batch and heads split them
+    (q's heads and the kv heads over the same axis, or one kv head shared by
+    all; no sequence split), every (batch, head) block attends on its own
+    rank: the core runs per shard in a manual region, as GSPMD partitions
+    it; otherwise on the DTensors."""
+    mesh = part.region_mesh(q)
+    if mesh is None:
+        return _attn_core(q, k, v, cfg, kind)
+    qs = part.resolve(("batch", "seq", "heads", None), tuple(q.shape), mesh)
+    ks = part.resolve(("batch", "seq_kv", "kv_heads", None), tuple(k.shape), mesh)
+    heads_match = qs[2] == ks[2] or (ks[2] is None and k.shape[2] == 1)
+    if qs[1] is not None or ks[1] is not None or not heads_match or qs[0] != ks[0]:
+        return _attn_core(q, k, v, cfg, kind)
+    out = P(qs[0], None, qs[2])
+    return part.shard_map(lambda ql, kl, vl: _attn_core(ql, kl, vl, cfg, kind), mesh, in_specs=(qs, ks, ks),
+                          out_specs=out, grad_axes=part.spec_axes(out))(q, k, v)
+
+
 def attention(x, p, cfg: ModelConfig, *, kind="attn", positions=None, memory=None):
     """Full-sequence attention. kind: attn|local|cross|bidir."""
     B, S, _ = x.shape
@@ -233,9 +259,9 @@ def attention(x, p, cfg: ModelConfig, *, kind="attn", positions=None, memory=Non
         T = memory.shape[1]
         k = (memory @ _w(p["wk"], x)).reshape(B, T, cfg.n_kv_heads, cfg.d_head)
         v = (memory @ _w(p["wv"], x)).reshape(B, T, cfg.n_kv_heads, cfg.d_head)
-        return _attn_core(q, k, v, cfg, "bidir") @ _w(p["wo"], x)
+        return _attn_placed(q, k, v, cfg, "bidir") @ _w(p["wo"], x)
     q, k, v = _qkv(x, p, cfg, positions)
-    return _attn_core(q, k, v, cfg, kind) @ _w(p["wo"], x)
+    return _attn_placed(q, k, v, cfg, kind) @ _w(p["wo"], x)
 
 
 def attention_prefill(x, p, cfg: ModelConfig, *, kind="attn", cache_len=None):
@@ -332,6 +358,7 @@ def init_mlp(gen, cfg: ModelConfig, d_ff=None, *, lead=()):
 
 def mlp(x, p, cfg: ModelConfig):
     h = x @ _w(p["w1"], x)
+    h = part.shard(h, "batch", "seq", "ffn")
     if "w3" in p:
         h = silu(h) * (x @ _w(p["w3"], x))
     else:
@@ -361,15 +388,25 @@ def _top_k(probs, K):
 
 
 def _moe_local(x, p, cfg: ModelConfig, model_axis=None):
-    """Token-choice top-k with capacity on one device. x: (B,S,d).
+    """Token-choice top-k with capacity; runs per data shard (or on one
+    device). x: (B,S,d) local tokens.
 
     Every token's k choices are sorted by expert (stably), ranked within
     their expert, and rows ranked at or past the capacity C are dropped.
-    Returns (y, aux_loss). The expert-sharded forms of the JAX package
-    (``model_axis``) wait for the port's device mesh.
+    Two TP layouts over ``model_axis`` (an axis of the installed mesh):
+
+      * FFN-sharded (default): every shard dispatches to ALL experts, the
+        expert FFN dim sharded (w1/w3 columns, w2 rows);
+      * expert-parallel (``cfg.moe_expert_parallel``): each shard owns
+        E/m whole experts, from ``e0 = rank_in(model) * E_loc``, and builds
+        only its (E/m, C, d) dispatch buffer; other experts' rows go to a
+        sentinel row and are dropped.
+
+    Contributions psum over the (T,d) combine either way. A model-sharded
+    shared expert (deepseek) adds its partial before that psum (the JAX
+    package adds it after, which keeps one shard's part only).
+    Returns (y, aux_loss_local).
     """
-    if model_axis is not None:
-        raise NotImplementedError("the port's MoE runs on one device; the mesh forms are not ported")
     B, S, d = x.shape
     E, K = cfg.n_experts, cfg.top_k
     T = B * S
@@ -387,25 +424,87 @@ def _moe_local(x, p, cfg: ModelConfig, model_axis=None):
     es, gs, ts = ef[order], gf[order], tf_[order]
     # rank within expert segment
     rank = torch.arange(T * K, device=x.device) - torch.searchsorted(es, es, side="left")
+    E_loc = p["w1"].shape[0]  # E (ffn-sharded) or E/m (expert-parallel)
     keep = rank < C
-    buf = torch.zeros((p["w1"].shape[0], C, d), dtype=x.dtype, device=x.device)
-    buf[es[keep], rank[keep]] = xt[ts[keep]]  # .at[...].set(mode="drop")
+    if model_axis is not None and E_loc < E:
+        e0 = part.axis_index(model_axis) * E_loc
+        mine = (es >= e0) & (es < e0 + E_loc)
+        el = torch.where(mine, es - e0, E_loc)  # sentinel row -> dropped
+        keep = keep & mine
+    else:
+        el = es
+    buf = torch.zeros((E_loc, C, d), dtype=x.dtype, device=x.device)
+    buf[el[keep], rank[keep]] = xt[ts[keep]]  # .at[...].set(mode="drop")
     h = torch.einsum("ecd,edf->ecf", buf, _w(p["w1"], x))
     h = silu(h) * torch.einsum("ecd,edf->ecf", buf, _w(p["w3"], x))
     out_e = torch.einsum("ecf,efd->ecd", h, _w(p["w2"], x))
-    contrib = out_e[es, rank % C] * gs[:, None].to(x.dtype) * keep[:, None]
+    contrib = out_e[el.clamp(0, E_loc - 1), rank % C] * gs[:, None].to(x.dtype) * keep[:, None]
     y = torch.zeros((T, d), dtype=x.dtype, device=x.device).index_add_(0, ts, contrib)
+    # shared experts (deepseek): dense path; a model-sharded one is a partial sum
+    shared_partial = model_axis is not None and "shared" in p and \
+        p["shared"]["w1"].shape[-1] < cfg.n_shared * cfg.d_expert
+    if shared_partial:
+        y = y + mlp(xt[None], p["shared"], cfg)[0]
+    if model_axis is not None:
+        y = part.psum(y, model_axis)  # combine first: psum the (T,d) result, not the (E,C,d) buffer
     # switch-style load-balance aux loss
     frac = torch.zeros(E, dtype=torch.float32, device=x.device).index_add_(
         0, ef, torch.ones_like(ef, dtype=torch.float32)) / (T * K)
     imp = probs.mean(0)
     aux = E * torch.sum(frac * imp)
-    # shared experts (deepseek): dense path
-    if "shared" in p:
+    if "shared" in p and not shared_partial:
         y = y + mlp(xt[None], p["shared"], cfg)[0]
     return y.reshape(B, S, d), aux
 
 
 def moe_ffn(x, p, cfg: ModelConfig):
-    """MoE FFN on one device (the JAX package's path without a mesh)."""
-    return _moe_local(x, p, cfg, None)
+    """MoE FFN; under a mesh, dispatch runs inside shard_map (tokens local to
+    (pod, data); expert FFN dim, or whole experts, sharded over model;
+    combine psum'd). With no mesh, inside a shard_map body, or on plain
+    tensors under a mesh that places nothing, it is the one-device path."""
+    mesh = part.region_mesh(x)
+    if mesh is None:
+        return _moe_local(x, p, cfg, None)
+    dp_axes = tuple(a for a in ("pod", "data") if a in mesh.shape)
+    model_axis = "model" if "model" in mesh.shape else None
+    x_spec = P(dp_axes if x.shape[0] % math.prod(mesh.shape[a] for a in dp_axes) == 0 else None, None, None)
+    ep_ok = cfg.moe_expert_parallel and model_axis and cfg.n_experts % mesh.shape[model_axis] == 0
+    f_ok = model_axis and cfg.d_expert % mesh.shape[model_axis] == 0
+    if ep_ok:  # expert-parallel: whole experts per shard
+        w_specs = {
+            "router": P(None, None),
+            "w1": P(model_axis, None, None),
+            "w3": P(model_axis, None, None),
+            "w2": P(model_axis, None, None),
+        }
+        f_ok = True  # psum over model still required for the combine
+    else:
+        w_specs = {
+            "router": P(None, None),
+            "w1": P(None, None, model_axis) if f_ok else P(None, None, None),
+            "w3": P(None, None, model_axis) if f_ok else P(None, None, None),
+            "w2": P(None, model_axis, None) if f_ok else P(None, None, None),
+        }
+    if "shared" in p:
+        sh_ok = model_axis and f_ok and all(v.shape[-1] % mesh.shape[model_axis] == 0
+                                            for k, v in p["shared"].items() if k != "w2")
+        w_specs["shared"] = {
+            "w1": P(None, model_axis) if sh_ok else P(None, None),
+            "w3": P(None, model_axis) if sh_ok else P(None, None),
+            "w2": P(model_axis, None) if sh_ok else P(None, None),
+        }
+        if "w3" not in p["shared"]:
+            w_specs["shared"].pop("w3")
+    # the axes the body splits its work over (the tokens' and, with the
+    # psum, model): there each rank's gradient of a replicated input is its
+    # share of the total and the aux loss is averaged; over any other axis
+    # (a batch that does not split over pod x data) every rank computes the
+    # whole, once
+    reduced = part.spec_axes(x_spec) + ((model_axis,) if f_ok else ())
+
+    def body(xl, pl_):
+        y, aux = _moe_local(xl, pl_, cfg, model_axis if f_ok else None)
+        return y, part.pmean(aux, reduced)
+
+    return part.shard_map(body, mesh, in_specs=(x_spec, w_specs), out_specs=(x_spec, P()), grad_axes=reduced)(
+        x, {k: p[k] for k in w_specs})

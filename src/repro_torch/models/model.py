@@ -40,6 +40,7 @@ import torch
 from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from ..configs.base import ModelConfig
+from ..runtime import partitioning as part
 from . import rglru as rg
 from . import ssm as ssm_mod
 from .layers import (
@@ -236,6 +237,7 @@ def block_apply(x, p, cfg: ModelConfig, kind: str, moe: bool, memory=None):
     elif "mlp" in p:
         h = rms_norm(x, p["ln2"], cfg.norm_eps)
         x = x + mlp(h, p["mlp"], cfg)
+    x = part.shard(x, "batch", "act_seq", "embed")
     return x, aux
 
 
@@ -243,8 +245,12 @@ def block_apply(x, p, cfg: ModelConfig, kind: str, moe: bool, memory=None):
 def _embed(params, cfg: ModelConfig, tokens):
     """``bf16(embed)[tokens] * sqrt(d)`` as the JAX package computes it
     (the rows are gathered before the cast: the same values, without a
-    bf16 copy of the whole table)."""
-    x = _d(params["embed"][tokens])
+    bf16 copy of the whole table). A placed table gathers through
+    ``embedding``, whose sharding rules DTensor has (a vocab-split table
+    too); plain indexing's backward has none in every torch release."""
+    table = params["embed"]
+    rows = torch.nn.functional.embedding(tokens, table) if part.is_placed(table) else table[tokens]
+    x = _d(rows)
     return x * _scalar(x, math.sqrt(cfg.d_model))
 
 
@@ -252,12 +258,12 @@ def _embed_inputs(params, cfg: ModelConfig, batch):
     x = _embed(params, cfg, batch["tokens"])
     if cfg.stub_frontend == "vit" and "img" in batch:
         x = torch.cat([_d(batch["img"]), x], dim=1)
-    return x
+    return part.shard(x, "batch", "act_seq", "embed")
 
 
 def _encode(params, cfg: ModelConfig, frames):
     """Whisper encoder over stub frame embeddings (B, enc_seq, d)."""
-    x = _d(frames)
+    x = part.shard(_d(frames), "batch", "act_seq", "embed")
 
     def grp(x, sl):
         x, _ = block_apply(x, sl, cfg, "bidir", False)
@@ -274,7 +280,8 @@ def _logits(params, cfg: ModelConfig, x):
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     # bf16 operands, fp32 accumulation (the reference's preferred_element_type)
-    return _mm32("bsd,dv->bsv", x.to(CDTYPE), head.to(CDTYPE))
+    logits = _mm32("bsd,dv->bsv", x.to(CDTYPE), head.to(CDTYPE))
+    return part.shard(logits, "batch", "act_seq", "vocab")
 
 
 def forward(params, cfg: ModelConfig, batch):
@@ -315,8 +322,13 @@ def loss_fn(params, cfg: ModelConfig, batch):
     mask = labels >= 0
     lse = torch.logsumexp(logits, dim=-1)
     # the label's logit: a gather equals the JAX package's masked sum, which
-    # adds that one logit to zeros
-    ll = torch.take_along_dim(logits, labels.clamp(min=0).long()[..., None], dim=-1)[..., 0]
+    # adds that one logit to zeros; on a mesh the logits' vocab axis is
+    # split, and the masked sum (a partial sum per shard) is what runs
+    if part.is_placed(logits):
+        iota_v = torch.arange(logits.shape[-1], dtype=labels.dtype, device=labels.device)
+        ll = torch.sum(torch.where(labels[..., None] == iota_v, logits, 0.0), dim=-1)
+    else:
+        ll = torch.take_along_dim(logits, labels.clamp(min=0).long()[..., None], dim=-1)[..., 0]
     nll = torch.where(mask, lse - ll, torch.zeros((), dtype=lse.dtype, device=lse.device))
     loss = nll.sum() / torch.clamp(mask.sum(), min=1)
     return loss + cfg.aux_loss_coef * aux

@@ -13,6 +13,8 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
+from ..runtime import partitioning as part
+from ..runtime.partitioning import P
 from .layers import _dense_init, _w, gelu, sigmoid
 
 _C = 8.0
@@ -46,18 +48,44 @@ def _conv(x, w):
     return sum(xp[:, i : i + x.shape[1]] * w[i].to(x.dtype) for i in range(K))
 
 
+def _scan(a, b):
+    """h_t = a_t h_{t-1} + b_t along axis 1, from h_{-1} = 0."""
+    hs = []
+    h = torch.zeros_like(b[:, 0])
+    for t in range(b.shape[1]):
+        h = a[:, t] * h + b[:, t]
+        hs.append(h)
+    return torch.stack(hs, dim=1)
+
+
+def _scan_placed(a, b):
+    """:func:`_scan` of placed gates: each (batch, channel) runs on its own
+    rank in a manual region (the recurrence is elementwise)."""
+    mesh = part.region_mesh(a)
+    if mesh is None:
+        return _scan(a, b)
+    spec = part.resolve(("batch", None, "lru"), tuple(a.shape), mesh)
+    return part.shard_map(_scan, mesh, in_specs=(spec, spec), out_specs=spec, grad_axes=part.spec_axes(spec))(a, b)
+
+
+def _conv_placed(x, w):
+    """:func:`_conv` of a placed input: each (batch, channel) block convolves
+    on its own rank (the conv is depthwise along the sequence)."""
+    mesh = part.region_mesh(x)
+    if mesh is None:
+        return _conv(x, w)
+    spec = part.resolve(("batch", None, "lru"), tuple(x.shape), mesh)
+    return part.shard_map(_conv, mesh, in_specs=(spec, P(None, spec[2])), out_specs=spec,
+                          grad_axes=part.spec_axes(spec))(x, w)
+
+
 def rglru_block(x, p, cfg: ModelConfig, return_cache: bool = False):
     """Full-sequence Griffin recurrent block. x: (B,S,d)."""
     gate = gelu(x @ _w(p["w_gelu"], x))
     xin = x @ _w(p["w_x"], x)
-    u = _conv(xin, p["conv_w"])
+    u = _conv_placed(xin, p["conv_w"])
     a, b = _gates(u, p)
-    hs = []
-    h = torch.zeros_like(b[:, 0])
-    for t in range(x.shape[1]):
-        h = a[:, t] * h + b[:, t]
-        hs.append(h)
-    h = torch.stack(hs, dim=1)
+    h = _scan_placed(a, b)
     out = (h.to(x.dtype) * gate) @ _w(p["w_out"], x)
     if return_cache:
         K = cfg.conv_width

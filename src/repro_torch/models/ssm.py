@@ -11,6 +11,8 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
+from ..runtime import partitioning as part
+from ..runtime.partitioning import P
 from .layers import _dense_init, _mm32, _w, _zeros, rms_norm, silu
 
 
@@ -34,6 +36,17 @@ def _causal_conv(x, w):
     xp = F.pad(x, (0, 0, K - 1, 0))
     out = sum(xp[:, i : i + x.shape[1]] * w[i].to(x.dtype) for i in range(K))
     return silu(out)
+
+
+def _conv_placed(x, w):
+    """:func:`_causal_conv` of a placed input: each batch block convolves on
+    its own rank (the channels, ``in_proj``'s columns, are not split)."""
+    mesh = part.region_mesh(x)
+    if mesh is None:
+        return _causal_conv(x, w)
+    spec = part.resolve(("batch", None, None), tuple(x.shape), mesh)
+    return part.shard_map(_causal_conv, mesh, in_specs=(spec, P(None, None)), out_specs=spec,
+                          grad_axes=part.spec_axes(spec))(x, w)
 
 
 def _split_proj(zxbcdt, cfg: ModelConfig):
@@ -85,6 +98,23 @@ def ssd_chunked(xh, dt, A, Bm, Cm, chunk: int, return_state: bool = False):
     return (y, final_state) if return_state else y
 
 
+def _ssd_placed(xh, dt, A, Bm, Cm, chunk: int):
+    """:func:`ssd_chunked` of placed inputs: each (batch, head) block runs
+    on its own rank in a manual region; an input the blocks share (B and C
+    across heads, A across the batch) collects its gradient as the sum of
+    the blocks'."""
+    mesh = part.region_mesh(xh)
+    if mesh is None:
+        return ssd_chunked(xh, dt, A, Bm, Cm, chunk)
+    xs = part.resolve(("batch", "seq", "ssm_heads", None), tuple(xh.shape), mesh)
+    if xs[1] is not None:
+        return ssd_chunked(xh, dt, A, Bm, Cm, chunk)
+    bs, hs = xs[0], xs[2]
+    return part.shard_map(lambda *a: ssd_chunked(*a, chunk), mesh,
+                          in_specs=(xs, P(bs, None, hs), P(hs), P(bs, None, None), P(bs, None, None)),
+                          out_specs=xs, grad_axes=part.spec_axes(xs))(xh, dt, A, Bm, Cm)
+
+
 def ssm_block(x, p, cfg: ModelConfig, return_cache: bool = False):
     """Full-sequence SSD. x: (B,S,d) -> (B,S,d) [, decode-entry cache]."""
     B, S, d = x.shape
@@ -92,13 +122,16 @@ def ssm_block(x, p, cfg: ModelConfig, return_cache: bool = False):
     zxbcdt = x @ _w(p["in_proj"], x)
     z, xs, Bc, Cc, dt = _split_proj(zxbcdt, cfg)
     cin = torch.cat([xs, Bc, Cc], -1)
-    conv = _causal_conv(cin, p["conv_w"])
+    conv = _conv_placed(cin, p["conv_w"])
     xs, Bc, Cc = conv[..., :di], conv[..., di : di + N], conv[..., di + N :]
     dt = F.softplus(dt.float() + p["dt_bias"])
     A = -torch.exp(p["A_log"])
     xh = xs.reshape(B, S, H, Pd)
-    out = ssd_chunked(xh, dt, A, Bc, Cc, cfg.ssm_chunk, return_state=return_cache)
-    y, final_state = out if return_cache else (out, None)
+    xh = part.shard(xh, "batch", "seq", "ssm_heads", None)
+    if return_cache:
+        y, final_state = ssd_chunked(xh, dt, A, Bc, Cc, cfg.ssm_chunk, return_state=True)
+    else:
+        y, final_state = _ssd_placed(xh, dt, A, Bc, Cc, cfg.ssm_chunk), None
     y = y + p["D"][None, None, :, None] * xh.float()
     y = y.reshape(B, S, di).to(x.dtype) * silu(z)
     y = rms_norm(y, p["norm"], cfg.norm_eps)

@@ -36,19 +36,25 @@ def init_opt(params) -> OptState:
                     step=torch.zeros((), dtype=torch.int32, device=dev))
 
 
-def global_norm(grads) -> torch.Tensor:
+def global_norm(grads, reduce=None) -> torch.Tensor:
     """sqrt of the float32 sum of every leaf's sum of squares, the leaves
-    added in the tree walk's order (``jax.tree.leaves``')."""
+    added in the tree walk's order (``jax.tree.leaves``'). ``reduce`` maps
+    the list of the leaves' sums to the whole tensors' sums where the leaves
+    are ranks' blocks of them (one collective for all; the step on a device
+    mesh passes it)."""
+    sums = [torch.sum(torch.square(g.float())) for _, g in leaf_paths(grads)]
+    if reduce is not None:
+        sums = reduce(sums)
     g2 = None
-    for _, g in leaf_paths(grads):
-        s = torch.sum(torch.square(g.float()))
+    for s in sums:
         g2 = s if g2 is None else g2 + s
     return torch.sqrt(g2)
 
 
-def clip_by_global_norm(grads, max_norm: float):
-    """``(grads * min(1, max_norm / max(norm, 1e-9)), norm)``."""
-    norm = global_norm(grads)
+def clip_by_global_norm(grads, max_norm: float, reduce=None):
+    """``(grads * min(1, max_norm / max(norm, 1e-9)), norm)``; ``reduce`` as
+    :func:`global_norm`'s."""
+    norm = global_norm(grads, reduce)
     # a tensor numerator: torch turns ``number / tensor`` into reciprocal-then-multiply
     scale = torch.clamp(torch.full_like(norm, max_norm) / torch.clamp(norm, min=1e-9), max=1.0)
     return tree_map(lambda g: g * scale, grads), norm

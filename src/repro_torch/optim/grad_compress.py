@@ -40,16 +40,29 @@ from ..core.serial import pack_obj, unpack_obj
 from ..core.tree import leaf_paths, tree_map
 
 
-def quantize_shard(t):
+def quantize_shard(t, amax=None):
     """``(q, scale)``: ``t`` quantized to int8 in [-127, 127] with the scale
-    ``max|t| / 127`` (a 0-d tensor of ``t``'s dtype), rounding half to even."""
+    ``max|t| / 127`` (a 0-d tensor of ``t``'s dtype), rounding half to even.
+    ``amax``: the max to use in place of ``t``'s own (that of a whole tensor
+    ``t`` is a block of)."""
     t = torch.as_tensor(t)
-    scale = torch.clamp(t.abs().max(), min=1e-30) / 127.0
+    scale = torch.clamp(t.abs().max() if amax is None else amax, min=1e-30) / 127.0
     q = torch.clamp(torch.round(t / scale), -127, 127).to(torch.int8)
     return q, scale
 
 
-def pod_allreduce_compressed(grads, residuals, group=None):
+def _max_over(values, groups) -> list:
+    """Each 0-d tensor of ``values`` as its max over the ranks of every
+    group in ``groups`` (one MAX all-reduce a group for all of them)."""
+    import torch.distributed as dist
+
+    m = torch.stack(values)
+    for grp in groups:
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=grp)
+    return list(m.unbind())
+
+
+def pod_allreduce_compressed(grads, residuals, group=None, shard_groups=()):
     """Error-feedback int8 all-reduce across the ranks of ``group`` (the
     default process group when None); every rank calls it with its own
     gradients.
@@ -57,7 +70,13 @@ def pod_allreduce_compressed(grads, residuals, group=None):
     grads / residuals: trees of rank-local float32 tensors of one shape
     each. Returns ``(avg_grads, new_residuals)``: ``avg = sum_r scale_r *
     q_r / world`` over the ranks' int8 payloads ``q_r``, and ``t - q *
-    scale`` of this rank's ``t = g + r``."""
+    scale`` of this rank's ``t = g + r``.
+
+    ``shard_groups``: the leaves are this rank's blocks of tensors split
+    over the ranks of these groups (a pod's sub-mesh). Each block is then
+    quantized with its whole tensor's scale (the max over those ranks), so
+    its payload is that block of the whole tensor's, and only the blocks
+    cross ``group``."""
     import torch.distributed as dist
 
     world = dist.get_world_size(group)
@@ -65,10 +84,14 @@ def pod_allreduce_compressed(grads, residuals, group=None):
     gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
     leaves_g = [g for _, g in leaf_paths(grads)]
     leaves_r = [r for _, r in leaf_paths(residuals)]
+    amax = [None] * len(leaves_g)
+    if shard_groups:
+        amax = _max_over([(g.float() + r).abs().max() if g.numel() else r.new_zeros(())
+                          for g, r in zip(leaves_g, leaves_r, strict=True)], shard_groups)
     avg, new_res = [], []
-    for g, r in zip(leaves_g, leaves_r, strict=True):
+    for g, r, m in zip(leaves_g, leaves_r, amax, strict=True):
         t = g.float() + r
-        q, scale = quantize_shard(t)
+        q, scale = quantize_shard(t, m)
         new_res.append(t - q.float() * scale)
         q_all = torch.empty((world * q.numel(),), dtype=torch.int8, device=q.device)
         s_all = torch.empty((world,), dtype=torch.float32, device=q.device)

@@ -1,2 +1,2 @@
-"""repro_torch.runtime — partitioning rules, train/serve steps and the
-fault-tolerant training loop, on one device."""
+"""repro_torch.runtime — partitioning rules and placements, train/serve steps
+on one device or a device mesh, and the fault-tolerant training loop."""

@@ -15,15 +15,19 @@ Archs whose head counts don't divide the model axis (yi 56H, internvl2 14H,
 whisper 12H, recurrentgemma 10H) keep attention weights model-replicated and
 parallelize attention over the sequence instead (activation rules). A mesh
 is anything with an axis -> size ``.shape`` mapping; tree leaves need only
-a ``.shape`` (tensors on the ``meta`` device will do).
+a ``.shape`` (tensors on the ``meta`` device will do). :func:`tree_shardings`
+and :func:`place` need a real mesh (``launch.mesh.make_mesh``).
 """
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
+import torch
+
 from ..configs.base import ModelConfig, param_count
-from ..core.tree import children
-from .partitioning import P
+from ..core.tree import children, leaf_paths, tree_map
+from .partitioning import NamedSharding, P, is_placed, mesh_device
 
 FSDP_THRESHOLD = 2_000_000_000
 SEQPAR_THRESHOLD = 8_000_000_000  # residual-stream sequence parallelism
@@ -162,6 +166,36 @@ def map_with_path(fn, tree, path: str = ""):
 def tree_pspecs(tree, cfg: ModelConfig, mesh):
     """Tree of partition specs matching ``tree`` (works on meta tensors)."""
     return map_with_path(lambda path, leaf: param_pspec(path, tuple(leaf.shape), cfg, mesh), tree)
+
+
+def tree_shardings(tree, cfg: ModelConfig, mesh):
+    """``tree_pspecs`` as :class:`NamedSharding` s on ``mesh``."""
+    return tree_map(lambda s: NamedSharding(mesh, s), tree_pspecs(tree, cfg, mesh))
+
+
+def place(tree, shardings):
+    """``jax.device_put(tree, shardings)``: every leaf as a DTensor laid out
+    by its :class:`NamedSharding` (a tree of them, or one for every leaf),
+    on the mesh's device. Rank 0's values are the ones placed (a
+    ``distribute_tensor`` scatter), so ranks that drew different values
+    still agree. DTensor leaves are redistributed."""
+    from torch.distributed.tensor import distribute_tensor
+
+    flat = [leaf for _, leaf in leaf_paths(tree)]
+    shs = [shardings] * len(flat) if isinstance(shardings, NamedSharding) else \
+        [s for _, s in leaf_paths(shardings)]
+    if len(shs) != len(flat):
+        raise ValueError(f"{len(flat)} leaves, {len(shs)} shardings")
+    out = []
+    for leaf, sh in zip(flat, shs, strict=True):
+        dm = sh.mesh.device_mesh
+        if is_placed(leaf):
+            out.append(leaf.redistribute(dm, sh.placements))
+            continue
+        t = leaf if isinstance(leaf, torch.Tensor) else torch.from_numpy(np.asarray(leaf))
+        out.append(distribute_tensor(t.detach().to(mesh_device(dm)), dm, sh.placements))
+    it = iter(out)
+    return tree_map(lambda _: next(it), tree)
 
 
 def cache_pspec(path: str, shape: tuple, cfg: ModelConfig, mesh, rules: dict) -> P:

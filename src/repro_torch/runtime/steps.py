@@ -1,4 +1,4 @@
-"""Train, prefill and serve steps on one device.
+"""Train, prefill and serve steps, on one device or a device mesh.
 
 ``make_train_step``: loss -> gradients (``torch.autograd.grad`` over the
 parameter leaves) -> global-norm clip -> [the compressed cross-pod
@@ -9,14 +9,30 @@ given as it was (the JAX package donates it). Batch leaves (numpy arrays or
 tensors) move to the parameters' device first, as ``jit`` moves its
 arguments.
 
-The compressed step is the JAX package's cross-pod exchange in its global
-view: the batch splits into ``mesh.shape["pod"]`` slices, each pod's loss
-and gradients are computed in turn, each gradient plus its error-feedback
-residual is quantized to int8 with a per-tensor scale (the new residual is
-what the quantization lost), and the pods' dequantized gradients are
-averaged before the clip. On one device this is the single-node meaning of
-that step; across processes the same exchange is
-:func:`repro_torch.optim.grad_compress.pod_allreduce_compressed`.
+The compressed step is the JAX package's cross-pod exchange. Its global
+view (a ``mesh`` that is only an axis -> size ``.shape``): the batch splits
+into ``mesh.shape["pod"]`` slices, each pod's loss and gradients are
+computed in turn, each gradient plus its error-feedback residual is
+quantized to int8 with a per-tensor scale (the new residual is what the
+quantization lost), and the pods' dequantized gradients are averaged
+before the clip.
+
+Under a device mesh (``launch.mesh.make_mesh``) the state's leaves are
+DTensors placed by :func:`state_pspecs` (TP over ``model``, FSDP over
+``data`` where ``use_fsdp``, replicated over ``pod``) and the batch is
+placed by :func:`batch_pspecs`. The loss runs on DTensors under the
+activation rules, so the mean over the batch's ``pod x data`` shards is
+the loss's own mean, taken once; each gradient is redistributed to its
+parameter's placements, the clip's norm is one float32 number on every
+rank (each leaf's sum of squares in ``leaf_paths`` order), and AdamW runs
+on the local shards. The step returns the state with the placements it
+was given. With ``compress_pods`` each pod computes its loss and
+gradients on its slice of the batch over the ``("data", "model")``
+sub-mesh; each rank quantizes its block of its pod's gradient with the
+whole gradient's scale, and the pods exchange those int8 blocks over the
+``pod`` axis's process group
+(:func:`repro_torch.optim.grad_compress.pod_allreduce_compressed`); the
+residuals are ``(npods, ...)`` leaves sharded over ``pod``.
 """
 from __future__ import annotations
 
@@ -30,9 +46,10 @@ from ..configs.base import ModelConfig
 from ..core.tree import leaf_paths, tree_map
 from ..models import decode_step, init_params, loss_fn, prefill
 from ..optim.adamw import OptState, adamw_update, clip_by_global_norm, init_opt
-from ..optim.grad_compress import quantize_shard
+from ..optim.grad_compress import pod_allreduce_compressed, quantize_shard
+from . import partitioning as part
 from . import sharding_rules as rules_mod
-from .partitioning import P
+from .partitioning import NamedSharding, P
 
 
 @dataclasses.dataclass
@@ -42,17 +59,31 @@ class TrainState:
     resid: Any  # error-feedback residuals, leading 'pod' axis; () when off
 
 
-def make_train_state(cfg: ModelConfig, generator: torch.Generator | None = None, *, npods: int = 0, device=None):
+def _placing(mesh) -> bool:
+    """A mesh that places tensors (a ``launch.mesh.Mesh``), not just a shape."""
+    return mesh is not None and hasattr(mesh, "device_mesh")
+
+
+def make_train_state(cfg: ModelConfig, generator: torch.Generator | None = None, *, npods: int = 0, device=None,
+                     mesh=None):
     """Parameters from ``generator`` (see ``init_params``: on the card unless
     ``device`` says otherwise, ``"meta"`` for shapes only), zero AdamW
     moments, and zero residuals of shape ``(npods, *p.shape)`` when
-    ``npods``."""
+    ``npods``. Under a device mesh (``mesh``, else the installed one) the
+    leaves are DTensors placed by :func:`state_pspecs` on the mesh's device
+    (rank 0's draw)."""
+    mesh = mesh if mesh is not None else part.get_mesh()
+    if _placing(mesh):
+        device = part.mesh_device(mesh.device_mesh)
     params = init_params(cfg, generator, device)
     opt = init_opt(params)
     resid = ()
     if npods:
         resid = tree_map(lambda p: torch.zeros((npods,) + tuple(p.shape), dtype=torch.float32, device=p.device), params)
-    return TrainState(params=params, opt=opt, resid=resid)
+    state = TrainState(params=params, opt=opt, resid=resid)
+    if _placing(mesh):
+        state = rules_mod.place(state, state_shardings(state, cfg, mesh))
+    return state
 
 
 def state_pspecs(state_shapes: TrainState, cfg: ModelConfig, mesh) -> TrainState:
@@ -65,6 +96,11 @@ def state_pspecs(state_shapes: TrainState, cfg: ModelConfig, mesh) -> TrainState
     else:
         r_spec = tree_map(lambda ps: P("pod", *ps), p_spec)
     return TrainState(params=p_spec, opt=OptState(m=m_spec, v=v_spec, step=P()), resid=r_spec)
+
+
+def state_shardings(state_shapes: TrainState, cfg: ModelConfig, mesh) -> TrainState:
+    """:func:`state_pspecs` as :class:`NamedSharding` s on ``mesh``."""
+    return tree_map(lambda s: NamedSharding(mesh, s), state_pspecs(state_shapes, cfg, mesh))
 
 
 def batch_pspecs(batch_shapes, mesh):
@@ -91,8 +127,56 @@ def batch_to(batch, device):
     return tree_map(one, batch)
 
 
+def place_batch(batch, mesh):
+    """Every leaf of ``batch`` as a DTensor placed by :func:`batch_pspecs`."""
+    batch = batch_to(batch, part.mesh_device(mesh.device_mesh))
+    return rules_mod.place(batch, tree_map(lambda s: NamedSharding(mesh, s), batch_pspecs(batch, mesh)))
+
+
 def _device_of(tree) -> torch.device:
     return next(leaf for _, leaf in leaf_paths(tree)).device
+
+
+def _local(t):
+    return t.to_local() if part.is_placed(t) else t
+
+
+def _like(local, ref):
+    """``local`` as a DTensor with ``ref``'s mesh and placements."""
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(local, ref.device_mesh, ref.placements, run_check=False,
+                              shape=ref.shape, stride=ref.stride())
+
+
+def _on_sub(t, sub):
+    """A DTensor of the full mesh, replicated or split over its leading
+    (``pod``) axis, as this pod's DTensor on the sub-mesh ``sub``."""
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(t.to_local(), sub.device_mesh, tuple(t.placements[1:]), run_check=False)
+
+
+def _full(t):
+    return t.full_tensor() if part.is_placed(t) else t
+
+
+def _sums_over_mesh(refs):
+    """``global_norm``'s ``reduce`` on a device mesh whose blocks are placed
+    as the DTensors ``refs``: each leaf's sum of squares over its distinct
+    blocks (a block replicated over an axis counts once: only the rank at
+    coordinate 0 there adds it), all leaves in one all-reduce."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate
+
+    def reduce(sums):
+        own = [s if all(c == 0 for c, pl in zip(r.device_mesh.get_coordinate(), r.placements) if pl == Replicate())
+               else torch.zeros_like(s) for s, r in zip(sums, refs, strict=True)]
+        total = torch.stack(own)
+        dist.all_reduce(total)  # a mesh spans the whole process group
+        return list(total.unbind())
+
+    return reduce
 
 
 def _with_leaves(tree, leaves):
@@ -117,9 +201,11 @@ def pod_exchange(g, r):
 
 def make_train_step(cfg: ModelConfig, mesh=None, *, lr=3e-4, grad_clip=1.0, compress_pods=False):
     """Returns ``step(state, batch) -> (state, metrics)`` with metrics
-    ``{"loss", "grad_norm"}`` (0-d float32 tensors). The compressed
-    exchange runs when ``compress_pods`` and ``mesh`` has a ``"pod"`` axis
-    (``mesh`` is anything with an axis -> size ``.shape``)."""
+    ``{"loss", "grad_norm"}`` (0-d float32 tensors, the same on every
+    rank). The compressed exchange runs when ``compress_pods`` and ``mesh``
+    has a ``"pod"`` axis. ``mesh`` is a device mesh (the state must then be
+    placed on it, as :func:`make_train_state` places it) or anything with
+    an axis -> size ``.shape`` (the one-device global view)."""
 
     def _cast_params(params):
         """bf16_params: every fp32 matrix cast to bf16 before use (the
@@ -148,7 +234,10 @@ def make_train_step(cfg: ModelConfig, mesh=None, *, lr=3e-4, grad_clip=1.0, comp
         loss, grads = loss_and_grads(state.params, batch)
         return update(state, grads, state.resid, {"loss": loss})
 
-    if not (compress_pods and mesh is not None and "pod" in mesh.shape):
+    pods = compress_pods and mesh is not None and "pod" in mesh.shape
+    if _placing(mesh):
+        return _mesh_train_step(cfg, mesh, loss_and_grads, lr=lr, grad_clip=grad_clip, compress_pods=pods)
+    if not pods:
         return plain_step
 
     npods = mesh.shape["pod"]
@@ -172,6 +261,74 @@ def make_train_step(cfg: ModelConfig, mesh=None, *, lr=3e-4, grad_clip=1.0, comp
         return update(state, grads, new_resid, {"loss": loss})
 
     return compressed_step
+
+
+def _mesh_train_step(cfg: ModelConfig, mesh, loss_and_grads, *, lr, grad_clip, compress_pods):
+    """The step on a device mesh (see the module's docstring)."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    def rules_for(m):
+        return part.get_rules() if part.get_mesh() is m else rules_mod.activation_rules(cfg, m)
+
+    def grads_on(m, params, batch):
+        """Loss and gradients under ``m``'s rules; each gradient placed as
+        its parameter."""
+        with part.mesh_rules(m, rules_for(m)), implicit_replication():
+            loss, grads = loss_and_grads(params, batch)
+            flat = [g.redistribute(p.device_mesh, p.placements)
+                    for (_, g), (_, p) in zip(leaf_paths(grads), leaf_paths(params), strict=True)]
+            return _full(loss), flat
+
+    def update(state: TrainState, flat_g, resid, loss):
+        """Clip by the global norm, then AdamW on the local shards."""
+        with torch.no_grad():
+            grads, norm = clip_by_global_norm(_with_leaves(state.params, [_local(g) for g in flat_g]), grad_clip,
+                                              _sums_over_mesh(flat_g))
+            new_p, new_opt = adamw_update(tree_map(_local, state.params), grads, tree_map(_local, state.opt), lr)
+
+            def back(new, ref):
+                return _with_leaves(ref, [_like(n, r) for (_, n), (_, r) in
+                                          zip(leaf_paths(new), leaf_paths(ref), strict=True)])
+
+            new_state = TrainState(back(new_p, state.params),
+                                   OptState(m=back(new_opt.m, state.opt.m), v=back(new_opt.v, state.opt.v),
+                                            step=_like(new_opt.step, state.opt.step)), resid)
+        return new_state, {"loss": loss, "grad_norm": norm}
+
+    def mesh_step(state: TrainState, batch):
+        loss, flat_g = grads_on(mesh, state.params, place_batch(batch, mesh))
+        return update(state, flat_g, state.resid, loss)
+
+    if not compress_pods:
+        return mesh_step
+
+    npods = mesh.shape["pod"]
+    sub = mesh.sub(mesh.axis_names[1:])
+    pod_group = mesh.get_group("pod")
+    sub_groups = [mesh.get_group(a) for a in mesh.axis_names[1:]]
+
+    def pod_step(state: TrainState, batch):
+        import torch.distributed as dist
+
+        batch = tree_map(lambda b: _on_sub(b, sub), place_batch(batch, mesh))
+        params = tree_map(lambda p: _on_sub(p, sub), state.params)
+        loss, flat_g = grads_on(sub, params, batch)
+        with torch.no_grad():
+            # each rank quantizes its block of its pod's gradient with the
+            # whole gradient's scale (a max over the sub-mesh), so the int8
+            # payloads are the global view's; only the int8 blocks cross pods
+            local_r = [r.to_local()[0] for _, r in leaf_paths(state.resid)]
+            avg, new_r = pod_allreduce_compressed([_local(g) for g in flat_g], local_r, group=pod_group,
+                                                  shard_groups=sub_groups)
+            grads = [_like(a, p) for a, (_, p) in zip(avg, leaf_paths(state.params), strict=True)]
+            resid = _with_leaves(state.resid, [_like(r[None], ref) for r, (_, ref) in
+                                               zip(new_r, leaf_paths(state.resid), strict=True)])
+            loss = loss.clone()
+            dist.all_reduce(loss, group=pod_group)
+            loss = loss / npods
+        return update(state, grads, resid, loss)
+
+    return pod_step
 
 
 def make_prefill_step(cfg: ModelConfig):

@@ -19,7 +19,13 @@ The state lives on one device (the card, or the CPU where the caller built
 it there); each batch's leaves move there, checkpoints compress and restore
 there, and the restore takes the state itself as its template. Checkpoint
 leaf names are the JAX package's, so either package's Trainer resumes from
-the other's checkpoints. Tracing spans: ``train.step`` (a step, the loss
+the other's checkpoints. A state placed on a device mesh (DTensor leaves)
+restores with itself as the template, so each leaf comes back with its
+placements; saves gather and write through rank 0
+(``checkpoint.save``), and the SIGTERM flag is agreed on across the
+ranks every step (one rank's signal stops all of them after the same
+step). The loss is the same on every rank, so a rollback is too.
+Tracing spans: ``train.step`` (a step, the loss
 read back included), ``train.save`` (the final synchronous save) and
 ``train.restore``.
 """
@@ -38,9 +44,18 @@ from torch.profiler import record_function as span
 
 from .. import checkpoint as ckpt
 from ..core.tree import leaf_paths
+from .partitioning import is_placed
 from .steps import batch_to
 
 MAX_ROLLBACKS = 3  # non-finite steps in a row, each rolled back, before the loop gives up
+
+
+def _multi_rank(state) -> bool:
+    """Whether ``state`` is placed on a mesh of more than one rank."""
+    import torch.distributed as dist
+
+    placed = any(is_placed(leaf) for _, leaf in leaf_paths(state))
+    return placed and dist.is_initialized() and dist.get_world_size() > 1
 
 
 def default_ckpt_dir() -> str:
@@ -74,6 +89,7 @@ class Trainer:
         self.losses: list[float] = []
         self.rollbacks = 0  # in a row, since the last finite step
         self.device = next(leaf for _, leaf in leaf_paths(state) if isinstance(leaf, torch.Tensor)).device
+        self._multi_rank = _multi_rank(state)
         self._saver = ckpt.AsyncCheckpointer(cfg.ckpt_dir, eb=cfg.ckpt_eb, device=self.device)
         self._restore()
 
@@ -88,11 +104,22 @@ class Trainer:
     def _handle_sigterm(self, *_):
         self.preempted = True
 
+    def _stop(self) -> bool:
+        """The preemption flag, agreed on by every rank of a placed state."""
+        if not self._multi_rank:
+            return self.preempted
+        import torch.distributed as dist
+
+        flag = torch.tensor([int(self.preempted)], dtype=torch.int32, device=self.device)
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+        self.preempted = bool(flag.item())
+        return self.preempted
+
     def run(self):
         old = signal.signal(signal.SIGTERM, self._handle_sigterm)
         ewma_t = None
         try:
-            while self.step < self.cfg.total_steps and not self.preempted:
+            while self.step < self.cfg.total_steps and not self._stop():
                 batch = batch_to(next(self.data), self.device)
                 t0 = time.time()
                 with span("train.step"):

@@ -6,8 +6,6 @@ in >= 99.99% of points (float tie-breaks between frameworks); each package
 decodes the other's containers within eb * (1 + 1e-4), the repo-wide
 float32 slack.
 """
-import pathlib
-
 import numpy as np
 import pytest
 import torch
@@ -16,87 +14,39 @@ import repro.core as R
 import repro_torch.core as T
 from repro.core import metrics as rm
 from repro.core.compressor import _sections_unpack as r_unpack
-from repro.core.lossless import pipelines as rpipe
 from repro_torch.core import metrics as tm
 from repro_torch.core.compressor import _sections_unpack as t_unpack
 
-DATA = pathlib.Path(__file__).parent / "data"
-SLACK = 1e-4
+import torch_field_cases as cases
+from torch_field_cases import one_torch_thread  # noqa: F401 - autouse
+from torch_field_cases import DATA, SLACK
+from torch_field_cases import err_over_eb as _err_over_eb
+from torch_field_cases import smooth3d as _smooth3d
 
-
-def _smooth3d():
-    g = np.linspace(0, 4 * np.pi, 48)
-    X, Y, Z = np.meshgrid(g, g, g, indexing="ij")
-    return (np.sin(X) * np.cos(Y) * np.sin(Z) + 0.05 * np.cos(3 * X)).astype(np.float32)
-
-
-def _smooth3d_big():
-    g = np.linspace(0, 4 * np.pi, 96)
-    X, Y, Z = np.meshgrid(g, g, g, indexing="ij")
-    return (np.sin(X) * np.cos(Y) * np.sin(Z) + 0.3 * np.exp(-((X - 6) ** 2 + (Y - 6) ** 2) / 8)).astype(np.float32)
-
-
-FIELDS = {"smooth3d": _smooth3d, "smooth3d_big": _smooth3d_big,
-          "golden": lambda: np.load(DATA / "golden_field.npy")}
+# one field per file: smooth3d here, smooth3d_big and the golden field in
+# test_torch_compressor_big.py and test_torch_compressor_golden.py
+FIELDS = {"smooth3d": _smooth3d}
 
 
 @pytest.fixture(scope="module")
 def containers():
     """Per field: (x, reference container, port container, port telemetry)."""
-    out = {}
-    for name, make in FIELDS.items():
-        x = make()
-        comp = T.Compressor(device="cpu")
-        tb = comp.compress(x)
-        out[name] = (x, R.Compressor().compress(x), tb, comp.last_telemetry)
-    return out
-
-
-def _err_over_eb(x, y, buf):
-    return float(np.abs(np.asarray(y, np.float64) - x).max()) / R.Compressor.inspect(buf)["eb_abs"]
+    return cases.compressor_containers(FIELDS)
 
 
 @pytest.mark.parametrize("name", list(FIELDS))
 def test_containers_match_the_reference(containers, name):
-    x, rb, tb, _ = containers[name]
-    rh, rs = r_unpack(rb)
-    th, ts = t_unpack(tb)
-    assert th == rh  # same header: eb, padded shape, the autotuned plan, pipeline
-    rc, tc = rpipe.decode(rs[0]), rpipe.decode(ts[0])
-    assert rc.shape == tc.shape
-    agree = (rc == tc).mean()
-    assert agree >= 0.9999
-    if agree == 1.0:
-        assert tb == rb
+    cases.check_containers_match(containers, name)
 
 
 @pytest.mark.parametrize("name", list(FIELDS))
 def test_containers_cross_decode_within_the_bound(containers, name):
-    x, rb, tb, _ = containers[name]
-    assert _err_over_eb(x, R.Compressor().decompress(tb), tb) <= 1 + SLACK
-    for engine in ("numpy", "device"):
-        assert _err_over_eb(x, T.Compressor(device="cpu", engine=engine).decompress(rb), rb) <= 1 + SLACK
-        assert _err_over_eb(x, T.Compressor(device="cpu", engine=engine).decompress(tb), tb) <= 1 + SLACK
+    cases.check_cross_decode(containers, name)
 
 
-@pytest.mark.parametrize("name", ["smooth3d", "golden"])
+@pytest.mark.parametrize("name", ["smooth3d"])
 def test_device_engine_writes_the_same_container(containers, name):
-    x, _, tb, _ = containers[name]
-    comp = T.Compressor(device="cpu", engine="device")
-    assert comp.compress(torch.from_numpy(x)) == tb
-    assert comp.last_telemetry["fallbacks"] == []
-    y = comp.decompress(tb, out="device")
-    assert isinstance(y, torch.Tensor) and tuple(y.shape) == x.shape and y.dtype == torch.float32
-    assert np.array_equal(y.numpy(), T.Compressor(device="cpu").decompress(tb))
-
-
-def test_verify_telemetry(containers):
-    x, _, tb, tel = containers["smooth3d_big"]
-    assert tel["fallbacks"] == [] and tel["pipeline"] == "cr"
-    v = tel["verify"]
-    assert v["mode"] == "sample" and v["checked"] == 1 << 16 and v["repairs"] == 0
-    assert v["max_err"] <= v["bound"] * (1 + SLACK)
-    assert T.Compressor.inspect(tb) == R.Compressor.inspect(tb)
+    cases.check_device_engine(containers, name)
 
 
 @pytest.mark.parametrize("version", [1, 2])

@@ -719,3 +719,93 @@ def test_train_state_specs_place_nothing(cuda):
 
     st = state_specs(get_config("whisper-small"))
     assert st.params["embed"].device.type == "meta" and torch.cuda.memory_allocated() >= 0
+
+
+# ------------------------------------------------------------ the device mesh
+MESH_TWIN = """
+import dataclasses
+from torch.distributed.tensor.experimental import implicit_replication
+from repro_torch import checkpoint as ckpt
+from repro_torch.configs import get_config
+from repro_torch.core.tree import leaf_paths, tree_map
+from repro_torch.models.layers import init_moe, moe_ffn
+from repro_torch.runtime import partitioning as part
+from repro_torch.runtime.partitioning import NamedSharding, P
+from repro_torch.runtime.sharding_rules import activation_rules, place
+from repro_torch.runtime.steps import make_train_state, make_train_step, state_shardings
+
+dev = torch.device("cuda", torch.cuda.current_device())
+mesh = make_mesh((1, 1), ("data", "model"), device_type="cuda")
+out = {"backend": dist.get_backend()}
+batch = pickle.load(open(ARGS[0], "rb"))
+for name, arch, ep in (("olmoe", "olmoe-1b-7b", False), ("olmoe_ep", "olmoe-1b-7b", True), ("mamba2", "mamba2-370m", False)):
+    cfg = dataclasses.replace(get_config(arch).scaled(), moe_expert_parallel=ep)
+    res = {}
+    for kind, m in (("plain", None), ("mesh", mesh)):
+        st = make_train_state(cfg, torch.Generator(device=dev).manual_seed(1), device=dev, mesh=m)
+        new, met = make_train_step(cfg, m, grad_clip=1e30)(st, batch[arch])
+        res[kind] = (float(met["loss"]), float(met["grad_norm"]),
+                     [(t.full_tensor() if m is not None else t).cpu().numpy() for _, t in leaf_paths(new.opt.m)])
+        if m is not None:
+            res["kept"] = all(tuple(a.placements) == tuple(b.placements) for (_, a), (_, b) in zip(leaf_paths(new), leaf_paths(st)))
+    out[name] = res
+cfg = get_config("deepseek-moe-16b").scaled()
+p = init_moe(torch.Generator(device=dev).manual_seed(0), cfg)
+x = torch.randn(4, 8, cfg.d_model, generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+y1, aux1 = moe_ffn(x, p, cfg)
+with part.mesh_rules(mesh, activation_rules(cfg, mesh)), implicit_replication():
+    pd = place(p, tree_map(lambda _: NamedSharding(mesh, P()), p))
+    y, aux = moe_ffn(place(x, NamedSharding(mesh, P("data", None, None))), pd, cfg)
+out["moe"] = (float((y.full_tensor() - y1).abs().max()), float(aux.full_tensor()), float(aux1))
+cfg = get_config("gemma3-12b").scaled()
+st = make_train_state(cfg, torch.Generator(device=dev).manual_seed(2), device=dev)
+ckpt.save(st, os.path.join(OUT, "plain"), 1)
+tmpl = make_train_state(cfg, device="meta")
+placed, _ = ckpt.restore(tmpl, os.path.join(OUT, "plain"), shardings=state_shardings(tmpl, cfg, mesh))
+out["restore_equal"] = all(type(b).__name__ == "DTensor" and torch.equal(a, b.to_local()) for (_, a), (_, b) in zip(leaf_paths(st), leaf_paths(placed)))
+ckpt.save(placed, os.path.join(OUT, "placed"), 1)
+finish(out)
+"""
+
+
+@pytest.fixture(scope="module")
+def mesh_twin(tmp_path_factory):
+    """One rank of an NCCL process group on the card, in a subprocess (the
+    pytest process keeps no process group)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA is not available)")
+    import pickle
+
+    import torch_mesh_ranks as ranks
+    from repro_torch.configs import get_config
+
+    tmp = tmp_path_factory.mktemp("mesh_twin")
+    batches = {a: ranks.step_batch(get_config(a).scaled()) for a in ("olmoe-1b-7b", "mamba2-370m")}
+    with open(tmp / "batch.pkl", "wb") as f:
+        pickle.dump(batches, f)
+    return tmp, ranks.run_ranks(MESH_TWIN, 1, tmp, args=[tmp / "batch.pkl"], device="cuda", timeout=120)[0]
+
+
+@pytest.mark.parametrize("name", ["olmoe", "olmoe_ep", "mamba2"])
+def test_the_mesh_step_on_a_one_rank_nccl_mesh_matches_the_plain_step(mesh_twin, name):
+    import torch_mesh_ranks as ranks
+
+    _, out = mesh_twin
+    assert out["backend"] == "nccl"
+    (lp, gp, mp), (lm, gm, mm) = out[name]["plain"], out[name]["mesh"]
+    assert abs(lp - lm) < 5e-4 and abs(gp - gm) / gp < 3e-3 and max(ranks.rel_errors(mm, mp)) < 6e-2
+    assert out[name]["kept"]
+
+
+def test_moe_ffn_on_a_one_rank_nccl_mesh_matches_one_device(mesh_twin):
+    dy, aux, aux1 = mesh_twin[1]["moe"]
+    assert dy < 1e-5 and abs(aux - aux1) < 1e-6
+
+
+def test_restore_onto_a_one_rank_nccl_mesh_and_its_placed_save(mesh_twin):
+    tmp, out = mesh_twin
+    assert out["restore_equal"]
+    plain, placed = tmp / "plain" / "step_00000001", tmp / "placed" / "step_00000001"
+    names = sorted(p.name for p in plain.glob("*.bin"))
+    assert names and names == sorted(p.name for p in placed.glob("*.bin"))
+    assert all((plain / n).read_bytes() == (placed / n).read_bytes() for n in names)

@@ -18,41 +18,20 @@ import repro.core as R
 import repro_torch.core as T
 from repro.core import lorenzo as rlor
 from repro.core.compressor import _sections_unpack as r_unpack
-from repro.core.lossless import pipelines as rpipe
 from repro.kernels.lorenzo3d.ops import lorenzo_encode_pallas
 from repro_torch.core import lorenzo as tlor
 from repro_torch.core.compressor import _sections_unpack as t_unpack
 from repro_torch.kernels import lorenzo3d as klor
 
-SLACK = 1e-4
+import torch_field_cases as cases
+from torch_field_cases import one_torch_thread  # noqa: F401 - autouse
+from torch_field_cases import PRESETS, SLACK
+from torch_field_cases import err_over_eb as _err_over_eb
+from torch_field_cases import smooth3d as _smooth3d
 
-
-def _smooth3d():
-    g = np.linspace(0, 4 * np.pi, 48)
-    X, Y, Z = np.meshgrid(g, g, g, indexing="ij")
-    return (np.sin(X) * np.cos(Y) * np.sin(Z) + 0.05 * np.cos(3 * X)).astype(np.float32)
-
-
-def _smooth3d_big():
-    g = np.linspace(0, 4 * np.pi, 96)
-    X, Y, Z = np.meshgrid(g, g, g, indexing="ij")
-    return (np.sin(X) * np.cos(Y) * np.sin(Z) + 0.3 * np.exp(-((X - 6) ** 2 + (Y - 6) ** 2) / 8)).astype(np.float32)
-
-
-def _spiky():
-    """A random walk with forced outliers: spikes far beyond 127 * 2eb."""
-    rng = np.random.default_rng(7)
-    x = rng.standard_normal((30, 33, 37)).astype(np.float32).cumsum(2)
-    x.reshape(-1)[rng.choice(x.size, 200, replace=False)] += rng.choice([-50.0, 50.0], 200).astype(np.float32)
-    return x
-
-
-FIELDS = {"smooth3d": _smooth3d, "smooth3d_big": _smooth3d_big, "spiky": _spiky}
-PRESETS = ["fzgpu_like", "cusz_l", "cusz_hi_tp"]
-
-
-def _err_over_eb(x, y, buf):
-    return float(np.abs(np.asarray(y, np.float64) - x).max()) / R.Compressor.inspect(buf)["eb_abs"]
+# one field per file: smooth3d here, smooth3d_big and spiky in
+# test_torch_lorenzo_big.py and test_torch_lorenzo_spiky.py
+FIELDS = {"smooth3d": _smooth3d}
 
 
 def _shaped(shape, seed):
@@ -126,14 +105,7 @@ def test_saturating_field_fails_verify_as_in_the_reference(preset):
 @pytest.fixture(scope="module")
 def containers():
     """Per (field, preset): (x, reference container, port container, port telemetry)."""
-    out = {}
-    for name, make in FIELDS.items():
-        x = make()
-        for preset in PRESETS:
-            comp = getattr(T, preset)(device="cpu")
-            tb = comp.compress(x)
-            out[name, preset] = (x, getattr(R, preset)().compress(x), tb, comp.last_telemetry)
-    return out
+    return cases.lorenzo_containers(FIELDS)
 
 
 CASES = [(f, p) for f in FIELDS for p in PRESETS]
@@ -141,39 +113,18 @@ CASES = [(f, p) for f in FIELDS for p in PRESETS]
 
 @pytest.mark.parametrize("field,preset", CASES)
 def test_containers_match_the_reference(containers, field, preset):
-    x, rb, tb, tel = containers[field, preset]
-    rh, rs = r_unpack(rb)
-    th, ts = t_unpack(tb)
-    assert th == rh
-    assert tel["fallbacks"] == [] and tel["verify"]["repairs"] == 0
-    if th["mode"] == "lorenzo":
-        assert tb == rb
-        return
-    rc, tc = rpipe.decode(rs[0]), rpipe.decode(ts[0])
-    assert rc.shape == tc.shape and (rc == tc).mean() >= 0.9999
-    if (rc == tc).all():
-        assert tb == rb
+    cases.check_lorenzo_containers_match(containers, field, preset)
 
 
 @pytest.mark.parametrize("field,preset", CASES)
 def test_containers_cross_decode_within_the_bound(containers, field, preset):
-    x, rb, tb, _ = containers[field, preset]
-    assert _err_over_eb(x, R.Compressor().decompress(tb), tb) <= 1 + SLACK
-    for engine in ("numpy", "device"):
-        for buf in (rb, tb):
-            y = T.Compressor(device="cpu", engine=engine).decompress(buf)
-            assert y.shape == x.shape and _err_over_eb(x, y, buf) <= 1 + SLACK
+    cases.check_lorenzo_cross_decode(containers, field, preset)
 
 
-@pytest.mark.parametrize("field", ["smooth3d", "spiky"])
+@pytest.mark.parametrize("field", ["smooth3d"])
 @pytest.mark.parametrize("preset", ["fzgpu_like", "cusz_l"])
 def test_device_engine_writes_the_same_lorenzo_container(containers, field, preset):
-    x, rb, _, _ = containers[field, preset]
-    comp = T.Compressor(getattr(T, preset)(device="cpu").spec, device="cpu", engine="device")
-    assert comp.compress(torch.from_numpy(x)) == rb
-    y = comp.decompress(rb, out="device")
-    assert isinstance(y, torch.Tensor) and y.dtype == torch.float32
-    assert np.array_equal(y.numpy(), T.Compressor(device="cpu", engine="numpy").decompress(rb))
+    cases.check_lorenzo_device_engine(containers, field, preset)
 
 
 @pytest.mark.parametrize("preset", PRESETS + ["cusz_hi_cr", "cusz_i"])

@@ -184,9 +184,14 @@ def test_train_cli_default_ckpt_dir_lies_under_the_temporary_directory(tmp_path,
     assert "no step to take: resumed at step 2 of --steps 2" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("flag", [["--mesh", "2,2"], ["--compress-pods"]])
-def test_train_cli_mesh_flags_raise_until_the_mesh_is_ported(tmp_path, flag):
-    with pytest.raises(NotImplementedError, match="slice 11"):
+@pytest.mark.parametrize("flag", [["--mesh", "2,2"], ["--mesh", "2,1,2", "--compress-pods"]])
+def test_train_cli_mesh_flags_raise_until_the_mesh_is_ported(tmp_path, flag, monkeypatch):
+    """The mesh is ported (``tests/test_torch_mesh_cli.py`` trains on it); a
+    mesh of 4 ranks in a world of one still raises, before anything is
+    written."""
+    for k in ("RANK", "WORLD_SIZE"):
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(RuntimeError, match="needs a process group of 4"):
         train.run(["--scaled", "--arch", "mamba2-370m", "--steps", "1", "--device", "cpu",
                    "--ckpt-dir", str(tmp_path)] + flag)
     assert not os.listdir(tmp_path)

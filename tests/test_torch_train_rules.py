@@ -138,12 +138,17 @@ def test_resolve_matches_jax_under_installed_rules(mesh):
 def test_shard_and_named_sharding_place_nothing_on_one_device():
     x = torch.ones(2, 3)
     assert tpart.shard(x, "batch", "embed") is x
-    with tpart.mesh_rules(types.SimpleNamespace(shape={"data": 2, "model": 2})):
-        assert tpart.shard(x, "batch", "embed") is x
-        assert tpart.get_mesh().shape == {"data": 2, "model": 2}
+    assert tpart.named_sharding("batch", "embed", shape=(2, 3)) is None
+    with tpart.mesh_rules(types.SimpleNamespace(shape={"data": 1, "model": 1})):
+        assert tpart.shard(x, "batch", "embed") is x  # a one-rank mesh places nothing
+        assert tpart.get_mesh().shape == {"data": 1, "model": 1}
         with pytest.raises(AssertionError):
             tpart.shard(x, "batch")
+    with tpart.mesh_rules(types.SimpleNamespace(shape={"data": 2, "model": 2})):
+        with pytest.raises(TypeError, match="place it first"):  # a plain tensor under a mesh of 4 ranks
+            tpart.shard(x, "batch", "embed")
         with tpart.no_annotation():
             assert tpart.shard(x, "batch") is x
-        assert tpart.named_sharding("batch", "embed", shape=(2, 3)) is None
+        ns = tpart.named_sharding("batch", "embed", shape=(2, 3))
+        assert ns.mesh is tpart.get_mesh() and ns.spec == tpart.resolve(("batch", "embed"), (2, 3))
     assert tpart.get_mesh() is None and tpart.get_rules() == tpart.DEFAULT_RULES == jpart.DEFAULT_RULES
