@@ -137,7 +137,14 @@ Phases, in order; any failure exits non-zero:
      is 12b's second CLI run, on --mesh 1,1 (the resume places the restored
      state; the final save gathers it through rank 0); 13c the compressed
      pod step on a (1, 1, 1) pod mesh against the global view (equal int8
-     payloads). Every phase's seconds are printed at the end.
+     payloads);
+ 14. the dry run (repro_torch.launch.dryrun), which touches no card: 14a the
+     CLI in three subprocesses at once (mamba2-370m decode_32k on (16, 16),
+     gemma3-12b prefill_32k on (2, 16, 16), olmoe-1b-7b train_4k on
+     (2, 16, 16) with --compress-pods), each OK; 14b the dry run's live-bytes
+     tracker over 12a's step on shape-only tensors against the card's
+     max_memory_allocated of that step (within 0.8-1.25x). Every phase's
+     seconds are printed at the end.
 Prints one JSON line of kernels, then, as the last line,
 {"ok": true, "device": {...}}. Without CUDA it exits non-zero and prints no result.
 
@@ -2345,8 +2352,10 @@ def phase_train_whole(device, smi: str, seed: int) -> dict:
         st = make_train_step(dataclasses.replace(cfg, remat=on), None, lr=1e-3)
         torch.cuda.synchronize(device)
         peak_reset(device)
+        base = torch.cuda.memory_allocated(device) if device.type == "cuda" else 0  # what phase 14b subtracts
         _, ms, loss, gnorm = train_step_run(st, state, fixed, device)
-        remat[on] = {"ms": ms, "loss": loss, "grad_norm": gnorm, "peak_gib": peak_gib(device)}
+        remat[on] = {"ms": ms, "loss": loss, "grad_norm": gnorm, "peak_gib": peak_gib(device), "base_bytes": base,
+                     "peak_bytes": torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0}
     check(remat[True]["loss"] == remat[False]["loss"], f"12a: remat changed the loss: {remat}")
     gn_rel = abs(remat[True]["grad_norm"] - remat[False]["grad_norm"]) / remat[False]["grad_norm"]
     check(gn_rel <= REMAT_GRAD_NORM_RTOL,
@@ -2744,6 +2753,95 @@ def phase_mesh(device, smi: str, seed: int) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ phase 14
+DRYRUN_CELLS = (("mamba2-370m", "decode_32k", ()), ("gemma3-12b", "prefill_32k", ("--multi-pod",)),
+                ("olmoe-1b-7b", "train_4k", ("--multi-pod", "--compress-pods")))
+DRYRUN_TIMEOUT = 140  # seconds, the three CLI runs together
+TRACKER_RATIO = (0.8, 1.25)
+
+
+def phase_dryrun_cli(smi: str) -> dict:
+    """Phase 14a: the dry-run CLI (repro_torch.launch.dryrun) in subprocesses
+    under this machine's torch, the three DRYRUN_CELLS at once, each a
+    "fake" process group of 256 or 512 ranks with shape-only tensors and no
+    card (CUDA_VISIBLE_DEVICES is empty): every run exits 0 and prints OK,
+    and its record is read back."""
+    import os
+    import tempfile
+
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src")] + ([os.environ["PYTHONPATH"]] if os.environ.get("PYTHONPATH") else [])))
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dryrun_") as d:
+        t0 = time.perf_counter()
+        procs = [(arch, shape, flags, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape, *flags, "--out-dir", d],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)) for arch, shape, flags in DRYRUN_CELLS]
+        try:
+            for arch, shape, flags, p in procs:
+                so, se = p.communicate(timeout=max(DRYRUN_TIMEOUT - (time.perf_counter() - t0), 1.0))
+                name = f"{arch}__{shape}__{'pod2' if '--multi-pod' in flags else 'pod1'}"
+                check(p.returncode == 0 and f"OK   {name}:" in so,
+                      f"14a: dry run {name} {' '.join(flags)}: exit {p.returncode}\n{so[-2000:]}\n{se[-3000:]}")
+                rec = json.loads((pathlib.Path(d) / f"{name}.json").read_text())
+                line = next(ln for ln in so.splitlines() if ln.startswith("OK"))
+                coll = {k: v for k, v in rec.get("collectives_total", rec["collectives"]).items() if "/" not in k}
+                say(f"  14a {line}")
+                say(f"      mesh {rec['mesh']}, {rec['kind']}, memory {rec['memory']}, collectives/dev {coll}"
+                    + (f", pod axis {rec['collectives_by_axis'].get('pod')}" if "--compress-pods" in flags else ""))
+                out[name] = {"line": line, "wall_s": time.perf_counter() - t0, "memory": rec["memory"],
+                             "cost": rec.get("cost_total", rec["cost"]), "collectives": coll,
+                             "trace_s": rec["trace_s"], "by_axis": rec["collectives_by_axis"]}
+        finally:
+            for *_, p in procs:
+                p.kill()
+                p.wait()
+    return out
+
+
+def phase_dryrun_tracker(whole: dict, smi: str, seed: int) -> dict:
+    """Phase 14b: the dry run's live-bytes tracker over 12a's step (the
+    whole whisper-small, remat on, batch TRAIN_BATCH x TRAIN_SEQ) traced on
+    shape-only tensors with no mesh, against what 12a measured on the card
+    for that step: max_memory_allocated less what was allocated before the
+    step, plus the step's arguments (the state and the batch, which the
+    tracker counts as they are). The ratio must lie in TRACKER_RATIO."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import TokenPipeline
+    from repro_torch.launch.dryrun import trace_step
+    from repro_torch.launch.specs import state_specs
+    from repro_torch.runtime.steps import batch_to, make_train_step
+
+    cfg = get_config("whisper-small")
+    batch = batch_to(next(TokenPipeline(cfg.vocab, TRAIN_BATCH, TRAIN_SEQ, seed=seed,
+                                        extras={"frames": (cfg.enc_seq, cfg.d_model)})), "meta")
+    t0 = time.perf_counter()
+    rec = trace_step(make_train_step(cfg, None, lr=1e-3), (state_specs(cfg), batch))
+    trace_s = time.perf_counter() - t0
+    r = whole["remat"]["True"]
+    mem = rec["memory"]
+    measured = r["peak_bytes"] - r["base_bytes"] + mem["argument_bytes"]
+    ratio = mem["peak_bytes"] / measured
+    say(f"  14b tracker over 12a's step (whisper-small whole, remat on, batch {TRAIN_BATCH} x {TRAIN_SEQ}; traced on "
+        f"meta in {trace_s:.1f} s): peak_bytes {mem['peak_bytes']} (arguments {mem['argument_bytes']}, outputs "
+        f"{mem['output_bytes']}, temp {mem['temp_bytes']}); the card ({smi}): max_memory_allocated {r['peak_bytes']} "
+        f"- allocated before {r['base_bytes']} + arguments = {measured}; ratio {ratio:.4f} (within {TRACKER_RATIO})")
+    check(TRACKER_RATIO[0] <= ratio <= TRACKER_RATIO[1],
+          f"14b: the tracker's peak {mem['peak_bytes']} is {ratio:.4f} x the card's {measured}")
+    return {"tracker": mem, "trace_s": trace_s, "card_peak_bytes": r["peak_bytes"], "card_base_bytes": r["base_bytes"],
+            "measured_bytes": measured, "ratio": ratio, "flops": rec["cost"]["flops"]}
+
+
+def phase_dryrun(whole: dict, smi: str, seed: int) -> dict:
+    """Phase 14: the dry run (repro_torch.launch.dryrun), which touches no card."""
+    t14 = time.perf_counter()
+    say(f"phase 14 ({smi}): the dry run (repro_torch.launch.dryrun) on a fake process group, shape-only tensors")
+    out = {"cli": phase_dryrun_cli(smi), "tracker": phase_dryrun_tracker(whole, smi, seed)}
+    out["wall_s"] = time.perf_counter() - t14
+    say(f"phase 14 took {out['wall_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2987,6 +3085,10 @@ def main() -> int:
     # 13. the device mesh
     results["mesh"] = phase_mesh(device, smi, args.seed)
     mark("13 mesh")
+
+    # 14. the dry run
+    results["dryrun"] = phase_dryrun(results["train"]["whole"], smi, args.seed)
+    mark("14 dry run")
     results["wall_s"] = time.perf_counter() - t_start
     results["phase_s"] = phase_s
     say("seconds by phase: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))

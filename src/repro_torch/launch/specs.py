@@ -15,6 +15,7 @@ import torch
 from ..configs import SHAPES, get_config
 from ..configs.base import ModelConfig
 from ..models import init_cache, init_params
+from ..runtime import partitioning as part
 from ..runtime.steps import make_train_state
 
 META = torch.device("meta")
@@ -39,7 +40,9 @@ def batch_specs(cfg: ModelConfig, seq: int, gbatch: int) -> dict:
 
 
 def state_specs(cfg: ModelConfig, *, npods: int = 0):
-    return make_train_state(cfg, None, npods=npods, device=META)
+    """The train state's shapes, placed on no mesh (an installed one too)."""
+    with part.mesh_rules(None):
+        return make_train_state(cfg, None, npods=npods, device=META)
 
 
 def params_specs(cfg: ModelConfig):

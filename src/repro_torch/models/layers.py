@@ -95,13 +95,19 @@ def rms_norm(x, scale, eps=1e-6):
 
 # ---------------------------------------------------------------- RoPE
 def rope(x, positions, theta):
-    """x: (..., S, H, dh); positions: (..., S)."""
+    """x: (..., S, H, dh); positions: (..., S), the same on every rank (a
+    placed ``x`` gets its angles replicated on its mesh)."""
     dh = x.shape[-1]
     half = dh // 2
     freq = torch.pow(torch.tensor(1.0 / theta, dtype=torch.float32, device=x.device),
                      torch.arange(half, dtype=torch.float32, device=x.device) / half)
     ang = positions[..., :, None, None].float() * freq  # (..., S, 1, half)
     cos, sin = torch.cos(ang), torch.sin(ang)
+    if part.is_placed(x) and not part.is_placed(cos):  # the angles, on every rank of x's mesh
+        from torch.distributed.tensor import DTensor, Replicate
+
+        cos, sin = (DTensor.from_local(t, x.device_mesh, [Replicate()] * x.device_mesh.ndim, run_check=False)
+                    for t in (cos, sin))
     x1, x2 = x[..., :half].float(), x[..., half:].float()
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
 
@@ -122,16 +128,37 @@ def init_attention(gen, cfg: ModelConfig, *, lead=()):
     return p
 
 
+def _heads(t, n: int, dh: int, seq: str, heads: str):
+    """A (B, S, n*dh) projection as (B, S, n, dh). Under a mesh it is first
+    laid out by its logical axes (``seq``, ``heads``): the fused dim stays
+    split over ``model`` only where the head count divides it (the rules'
+    ``heads_ok`` / ``kv_ok``), so every rank holds whole heads; otherwise it
+    moves to the sequence split (an all-to-all) or to every rank (an
+    all-gather), as XLA reshards at the reshape."""
+    B, S, _ = t.shape
+    return part.settle_grad(part.shard(t, "batch", seq, heads).reshape(B, S, n, dh))
+
+
+def _bias(b, x, n: int, dh: int):
+    """A (n*dh,) bias as (n, dh), laid out to add to a (B, S, n, dh) ``x``."""
+    b = _w(b, x)
+    if part.is_placed(b) and part.is_placed(x) and not part.in_manual_region():
+        from torch.distributed.tensor import Replicate, Shard
+
+        pl = tuple(Shard(0) if p == Shard(2) else Replicate() for p in x.placements)
+        b = b.redistribute(b.device_mesh, pl)
+    return b.reshape(n, dh)
+
+
 def _qkv(x, p, cfg: ModelConfig, positions, use_rope=True):
-    B, S, _ = x.shape
     H, Hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    q = (x @ _w(p["wq"], x)).reshape(B, S, H, dh)
-    k = (x @ _w(p["wk"], x)).reshape(B, S, Hk, dh)
-    v = (x @ _w(p["wv"], x)).reshape(B, S, Hk, dh)
+    q = _heads(x @ _w(p["wq"], x), H, dh, "seq", "heads")
+    k = _heads(x @ _w(p["wk"], x), Hk, dh, "seq_kv", "kv_heads")
+    v = _heads(x @ _w(p["wv"], x), Hk, dh, "seq_kv", "kv_heads")
     if "bq" in p:
-        q = q + _w(p["bq"], x).reshape(H, dh)
-        k = k + _w(p["bk"], x).reshape(Hk, dh)
-        v = v + _w(p["bv"], x).reshape(Hk, dh)
+        q = q + _bias(p["bq"], q, H, dh)
+        k = k + _bias(p["bk"], k, Hk, dh)
+        v = v + _bias(p["bv"], v, Hk, dh)
     if use_rope:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
@@ -169,17 +196,18 @@ def _mask(kind, qi, ki, window):
     return torch.ones_like(ki <= qi)
 
 
-def _attn_full(q, k, v, cfg, kind):
-    """Naive full-scores attention (exact reference; attn_chunk=0)."""
+def _attn_full(q, k, v, cfg, kind, q_off: int = 0):
+    """Naive full-scores attention (exact reference; attn_chunk=0). ``q_off``:
+    the position of q's first row (a rank's block of a split sequence)."""
     S, T = q.shape[1], k.shape[1]
     scores = _gqa_scores(q, k, cfg)
-    qi = torch.arange(S, device=q.device)[:, None]
+    qi = q_off + torch.arange(S, device=q.device)[:, None]
     ki = torch.arange(T, device=q.device)[None, :]
     scores = torch.where(_mask(kind, qi, ki, cfg.window)[None, None, None], scores, NEG)
     return _gqa_out(torch.softmax(scores, dim=-1), v, cfg)
 
 
-def _attn_blockwise(q, k, v, cfg, kind):
+def _attn_blockwise(q, k, v, cfg, kind, q_off: int = 0):
     """Flash-style blockwise attention (exact online softmax).
 
     Tiles both the query and KV axes with cfg.attn_chunk; statically skips
@@ -192,7 +220,7 @@ def _attn_blockwise(q, k, v, cfg, kind):
     C = cfg.attn_chunk
     Cq, Ck = min(C, S), min(C, T)
     if S % Cq or T % Ck:  # fall back on exact full path for ragged shapes
-        return _attn_full(q, k, v, cfg, kind)
+        return _attn_full(q, k, v, cfg, kind, q_off)
     qg = q.reshape(B, S, Hk, G, dh)
     scale = 1.0 / math.sqrt(dh)
     outs = []
@@ -201,13 +229,14 @@ def _attn_blockwise(q, k, v, cfg, kind):
         m = torch.full((B, Hk, G, Cq), NEG, dtype=torch.float32, device=q.device)
         den = torch.zeros((B, Hk, G, Cq), dtype=torch.float32, device=q.device)
         acc = torch.zeros((B, Hk, G, Cq, dh), dtype=torch.float32, device=q.device)
-        qi = q0 + torch.arange(Cq, device=q.device)[:, None]
+        a0 = q_off + q0  # the chunk's first position
+        qi = a0 + torch.arange(Cq, device=q.device)[:, None]
         for k0 in range(0, T, Ck):
             # static tile skipping: causal/local windows never look ahead,
             # local never looks further back than the window
-            if kind in ("attn", "local") and k0 > q0 + Cq - 1:
+            if kind in ("attn", "local") and k0 > a0 + Cq - 1:
                 continue
-            if kind == "local" and k0 + Ck - 1 < q0 - cfg.window + 1:
+            if kind == "local" and k0 + Ck - 1 < a0 - cfg.window + 1:
                 continue
             kc, vc = k[:, k0 : k0 + Ck], v[:, k0 : k0 + Ck]
             s = _mm32("bskgd,btkd->bkgst", qc, kc) * scale
@@ -224,29 +253,72 @@ def _attn_blockwise(q, k, v, cfg, kind):
     return torch.cat(outs, dim=1).to(q.dtype)
 
 
-def _attn_core(q, k, v, cfg, kind):
+def _attn_core(q, k, v, cfg, kind, q_off: int = 0):
     if cfg.attn_chunk and max(q.shape[1], k.shape[1]) > cfg.attn_chunk:
-        return _attn_blockwise(q, k, v, cfg, kind)
-    return _attn_full(q, k, v, cfg, kind)
+        return _attn_blockwise(q, k, v, cfg, kind, q_off)
+    return _attn_full(q, k, v, cfg, kind, q_off)
 
 
 def _attn_placed(q, k, v, cfg, kind):
     """:func:`_attn_core` of placed q, k, v. Where batch and heads split them
     (q's heads and the kv heads over the same axis, or one kv head shared by
-    all; no sequence split), every (batch, head) block attends on its own
-    rank: the core runs per shard in a manual region, as GSPMD partitions
-    it; otherwise on the DTensors."""
+    all), every (batch, head) block attends on its own rank: the core runs
+    per shard in a manual region, as GSPMD partitions it. Where q's heads
+    split and the kv heads are whole, each rank takes the kv heads its q
+    heads read. Where q's sequence splits over one axis (the sequence-TP
+    fallback of heads that do not divide it) and k, v are whole there, each
+    rank attends its block of queries from its offset. Otherwise the core
+    runs on the DTensors."""
     mesh = part.region_mesh(q)
     if mesh is None:
         return _attn_core(q, k, v, cfg, kind)
     qs = part.resolve(("batch", "seq", "heads", None), tuple(q.shape), mesh)
     ks = part.resolve(("batch", "seq_kv", "kv_heads", None), tuple(k.shape), mesh)
-    heads_match = qs[2] == ks[2] or (ks[2] is None and k.shape[2] == 1)
-    if qs[1] is not None or ks[1] is not None or not heads_match or qs[0] != ks[0]:
+    if ks[1] is not None or qs[0] != ks[0] or not (qs[1] is None or isinstance(qs[1], str)):
         return _attn_core(q, k, v, cfg, kind)
-    out = P(qs[0], None, qs[2])
-    return part.shard_map(lambda ql, kl, vl: _attn_core(ql, kl, vl, cfg, kind), mesh, in_specs=(qs, ks, ks),
-                          out_specs=out, grad_axes=part.spec_axes(out))(q, k, v)
+    out = P(qs[0], qs[1], qs[2])
+    if qs[1] is not None and (qs[2] == ks[2] or (ks[2] is None and k.shape[2] == 1)):
+        seq_axis, S_loc = qs[1], q.shape[1] // mesh.shape[qs[1]]
+        body = lambda ql, kl, vl: _attn_core(ql, kl, vl, cfg, kind,  # noqa: E731
+                                             part.axis_index(seq_axis) * S_loc)
+    elif qs[1] is not None:
+        return _attn_core(q, k, v, cfg, kind)
+    elif qs[2] == ks[2] or (ks[2] is None and k.shape[2] == 1):
+        body = lambda ql, kl, vl: _attn_core(ql, kl, vl, cfg, kind)  # noqa: E731
+    elif ks[2] is None and isinstance(qs[2], str):
+        body = _gqa_block_body(q.shape[2], k.shape[2], mesh.shape[qs[2]], qs[2], cfg, kind)
+        if body is None:
+            return _attn_core(q, k, v, cfg, kind)
+    else:
+        return _attn_core(q, k, v, cfg, kind)
+    return part.shard_map(body, mesh, in_specs=(qs, ks, ks), out_specs=out, grad_axes=part.spec_axes(out))(q, k, v)
+
+
+def _gqa_block_body(H: int, Hk: int, m: int, axis: str, cfg, kind):
+    """The manual body where q's H heads split over ``axis`` (m ranks) and
+    the Hk kv heads are whole on every rank (a kv-head count that does not
+    divide the axis): each rank attends with the kv heads its own q heads
+    read (q head h reads kv head h // (H / Hk)). None where a rank's q heads
+    would straddle kv groups unevenly."""
+    G, Hl = H // Hk, H // m
+    if Hl % G and G % Hl:
+        return None
+    n = max(Hl // G, 1)
+
+    def body(ql, kl, vl):
+        k0 = part.axis_index(axis) * Hl // G
+        return _attn_core(ql, kl[:, :, k0 : k0 + n], vl[:, :, k0 : k0 + n], cfg, kind)
+
+    return body
+
+
+def _attn_out(o):
+    """The attention's (B, S, H*dh) output laid out for the output
+    projection: the sequence whole (the sequence-TP fallback's split is
+    gathered), the heads split where they divide. torch 2.11's DTensor
+    flattens batch and sequence for a matmul only where the sequence is
+    whole."""
+    return part.shard(o, "batch", None, "heads")
 
 
 def attention(x, p, cfg: ModelConfig, *, kind="attn", positions=None, memory=None):
@@ -255,13 +327,12 @@ def attention(x, p, cfg: ModelConfig, *, kind="attn", positions=None, memory=Non
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :]
     if kind == "cross":
-        q = (x @ _w(p["wq"], x)).reshape(B, S, cfg.n_heads, cfg.d_head)
-        T = memory.shape[1]
-        k = (memory @ _w(p["wk"], x)).reshape(B, T, cfg.n_kv_heads, cfg.d_head)
-        v = (memory @ _w(p["wv"], x)).reshape(B, T, cfg.n_kv_heads, cfg.d_head)
-        return _attn_placed(q, k, v, cfg, "bidir") @ _w(p["wo"], x)
+        q = _heads(x @ _w(p["wq"], x), cfg.n_heads, cfg.d_head, "seq", "heads")
+        k = _heads(memory @ _w(p["wk"], x), cfg.n_kv_heads, cfg.d_head, "seq_kv", "kv_heads")
+        v = _heads(memory @ _w(p["wv"], x), cfg.n_kv_heads, cfg.d_head, "seq_kv", "kv_heads")
+        return _attn_out(_attn_placed(q, k, v, cfg, "bidir")) @ _w(p["wo"], x)
     q, k, v = _qkv(x, p, cfg, positions)
-    return _attn_placed(q, k, v, cfg, kind) @ _w(p["wo"], x)
+    return _attn_out(_attn_placed(q, k, v, cfg, kind)) @ _w(p["wo"], x)
 
 
 def attention_prefill(x, p, cfg: ModelConfig, *, kind="attn", cache_len=None):
@@ -269,15 +340,31 @@ def attention_prefill(x, p, cfg: ModelConfig, *, kind="attn", cache_len=None):
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None, :]
     q, k, v = _qkv(x, p, cfg, positions)
-    out = _attn_core(q, k, v, cfg, kind) @ _w(p["wo"], x)
+    out = _attn_out(_attn_placed(q, k, v, cfg, kind)) @ _w(p["wo"], x)
     C = cache_len or S
     if kind == "local":
         C = min(C, cfg.window)
     if C >= S:
-        kc, vc = F.pad(k, (0, 0, 0, 0, 0, C - S)), F.pad(v, (0, 0, 0, 0, 0, C - S))
+        kc, vc = _pad_seq(k, C - S), _pad_seq(v, C - S)
     else:  # keep last C entries (ring base 0 when S % C == 0)
         kc, vc = k[:, S - C :], v[:, S - C :]
     return out, {"k": kc, "v": vc}
+
+
+def _pad_seq(t, n: int):
+    """(B, S, ...) -> (B, S + n, ...), zeros after. A placed ``t`` whose
+    sequence is whole on every rank pads its local block (torch 2.11's
+    DTensor has no rule for ``pad``)."""
+    if not part.is_placed(t) or part.in_manual_region():
+        return F.pad(t, (0, 0) * (t.ndim - 2) + (0, n))
+    from torch.distributed.tensor import DTensor, Shard
+
+    if any(p == Shard(1) for p in t.placements):
+        return F.pad(t, (0, 0) * (t.ndim - 2) + (0, n))
+    local = F.pad(t.to_local(), (0, 0) * (t.ndim - 2) + (0, n))
+    shape = (t.shape[0], t.shape[1] + n) + tuple(t.shape[2:])
+    return DTensor.from_local(local, t.device_mesh, t.placements, run_check=False, shape=shape,
+                              stride=torch.empty(shape, device="meta").stride())
 
 
 def _kv_dequant(kq, scale, dtype):
@@ -295,16 +382,60 @@ def _kv_quant(k):
     return q, scale.float()
 
 
+def position(pos) -> int:
+    """A decode position as a Python int: an int, or a 0-d tensor that holds
+    one (a DTensor's is read from its local block). A shape-only (``meta``)
+    tensor has no value to read and raises."""
+    if isinstance(pos, torch.Tensor):
+        if part.is_shape_only(pos):
+            raise TypeError("a shape-only pos has no value; pass the decode position as an int")
+        pos = pos.to_local() if part.is_placed(pos) else pos
+    return int(pos)
+
+
 def _slot_write(buf, value, slot):
     """``buf[:, slot] = value`` in place, with ``lax.dynamic_update_slice``'s
     start clamped so the one-slot update stays inside ``buf``."""
     s = max(0, min(int(slot), buf.shape[1] - value.shape[1]))
+    if part.is_placed(buf) and not part.in_manual_region():
+        return _slot_write_placed(buf, value, s)
     buf[:, s : s + value.shape[1]] = value.to(buf.dtype)
     return buf
 
 
+def _slot_write_placed(buf, value, s: int):
+    """:func:`_slot_write` into a placed ``buf`` whose slot dim (1) may be
+    split: ``value`` is laid out as ``buf`` with dim 1 whole, and each rank
+    writes the part of the slots its block of ``buf`` holds into that block
+    (a DTensor slice of a split dim would write into a gathered copy)."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    pl = tuple(Replicate() if p == Shard(1) else p for p in buf.placements)
+    v = value.to(buf.dtype).redistribute(buf.device_mesh, pl).to_local()
+    size, off = compute_local_shape_and_global_offset(tuple(buf.shape), buf.device_mesh, tuple(buf.placements))
+    lo, hi = max(s, off[1]), min(s + v.shape[1], off[1] + size[1])
+    if lo < hi:
+        buf.to_local()[:, lo - off[1] : hi - off[1]] = v[:, lo - s : hi - s]
+    return buf
+
+
+def _against_cache(q, kc):
+    """A placed decode query (B, 1, H, dh) laid out against the placed cache
+    ``kc`` (B, C, Hk, dh): split as the cache over batch and kv heads,
+    whole over any axis that splits the cache's length (there each rank
+    scores its own slots). Plain tensors come back as they are."""
+    if not (part.is_placed(q) and part.is_placed(kc)) or part.in_manual_region():
+        return q
+    from torch.distributed.tensor import Replicate, Shard
+
+    pl = tuple(c if c in (Shard(0), Shard(2)) else Replicate() for c in kc.placements)
+    return q if tuple(q.placements) == pl else q.redistribute(q.device_mesh, pl)
+
+
 def attention_decode(x1, p, cfg: ModelConfig, cache, pos, *, kind="attn", memory=None):
-    """x1: (B,1,d); cache {'k','v'}: (B,C,Hk,dh); pos: int index of the new token.
+    """x1: (B,1,d); cache {'k','v'}: (B,C,Hk,dh); pos: index of the new token
+    (an int or a 0-d tensor).
 
     Global attn: slot = pos (capacity >= seq_len). Local: ring slot = pos % window.
     With cfg.kv_quant the cache leaves are int8 + scales. The cache's
@@ -313,9 +444,9 @@ def attention_decode(x1, p, cfg: ModelConfig, cache, pos, *, kind="attn", memory
     """
     B = x1.shape[0]
     H, Hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    pos = int(pos)
+    pos = position(pos)
     if kind == "cross":
-        q = (x1 @ _w(p["wq"], x1)).reshape(B, 1, H, dh)
+        q = _against_cache(_heads(x1 @ _w(p["wq"], x1), H, dh, "seq", "heads"), cache["k"])
         probs = torch.softmax(_gqa_scores(q, cache["k"], cfg), dim=-1)
         return _gqa_out(probs, cache["v"], cfg) @ _w(p["wo"], x1), cache
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=x1.device)
@@ -340,6 +471,7 @@ def attention_decode(x1, p, cfg: ModelConfig, cache, pos, *, kind="attn", memory
         kc = _slot_write(cache["k"], k1, slot)
         vc = _slot_write(cache["v"], v1, slot)
         new_cache = {"k": kc, "v": vc}
+    q = _against_cache(q, kc)
     scores = _gqa_scores(q, kc, cfg)  # (B,Hk,G,1,C)
     scores = torch.where(valid[None, None, None, None, :], scores, NEG)
     probs = torch.softmax(scores, dim=-1)
@@ -358,7 +490,10 @@ def init_mlp(gen, cfg: ModelConfig, d_ff=None, *, lead=()):
 
 def mlp(x, p, cfg: ModelConfig):
     h = x @ _w(p["w1"], x)
-    h = part.shard(h, "batch", "seq", "ffn")
+    # the FFN dim split over "model", the sequence whole: the sequence-TP
+    # fallback of heads that do not divide is the attention's (torch 2.11's
+    # DTensor cannot flatten a split sequence into w2's matmul)
+    h = part.shard(h, "batch", None, "ffn")
     if "w3" in p:
         h = silu(h) * (x @ _w(p["w3"], x))
     else:
@@ -385,6 +520,19 @@ def _top_k(probs, K):
     first among equal values (a stable descending sort)."""
     vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     return vals[..., :K], idx[..., :K]
+
+
+def _dispatch(rows, el, rank, keep, E_loc: int, C: int):
+    """The (E_loc, C, d) dispatch buffer: ``rows[i]`` at (``el[i]``,
+    ``rank[i]``) where ``keep[i]``, zeros elsewhere. Static shapes, as
+    ``.at[...].set(mode="drop")``: every row is written, a dropped one to a
+    sentinel row past the E_loc * C slots, which is sliced off (no boolean
+    index, no ``nonzero``, no host sync)."""
+    d = rows.shape[-1]
+    slot = torch.where(keep, el * C + rank, E_loc * C)
+    buf = torch.zeros((E_loc * C + 1, d), dtype=rows.dtype, device=rows.device)
+    buf = buf.index_put((slot,), rows)
+    return buf[: E_loc * C].view(E_loc, C, d)
 
 
 def _moe_local(x, p, cfg: ModelConfig, model_axis=None):
@@ -433,8 +581,7 @@ def _moe_local(x, p, cfg: ModelConfig, model_axis=None):
         keep = keep & mine
     else:
         el = es
-    buf = torch.zeros((E_loc, C, d), dtype=x.dtype, device=x.device)
-    buf[el[keep], rank[keep]] = xt[ts[keep]]  # .at[...].set(mode="drop")
+    buf = _dispatch(xt[ts], el, rank, keep, E_loc, C)
     h = torch.einsum("ecd,edf->ecf", buf, _w(p["w1"], x))
     h = silu(h) * torch.einsum("ecd,edf->ecf", buf, _w(p["w3"], x))
     out_e = torch.einsum("ecf,efd->ecd", h, _w(p["w2"], x))

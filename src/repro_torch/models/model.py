@@ -41,12 +41,14 @@ from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selectiv
 
 from ..configs.base import ModelConfig
 from ..runtime import partitioning as part
+from ..runtime.partitioning import P
 from . import rglru as rg
 from . import ssm as ssm_mod
 from .layers import (
     CDTYPE,
     MetaGenerator,
     _dense_init,
+    _heads,
     _mm32,
     _scalar,
     _zeros,
@@ -58,6 +60,7 @@ from .layers import (
     init_moe,
     mlp,
     moe_ffn,
+    position,
     rms_norm,
 )
 
@@ -218,7 +221,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None, devi
 # ------------------------------------------------------------------ blocks
 def block_apply(x, p, cfg: ModelConfig, kind: str, moe: bool, memory=None):
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    h = _branch_in(x, p["ln1"], cfg)
     if kind in ("attn", "local", "bidir"):
         m = attention(h, p["attn"], cfg, kind=kind)
     elif kind == "ssm":
@@ -228,14 +231,14 @@ def block_apply(x, p, cfg: ModelConfig, kind: str, moe: bool, memory=None):
     m = checkpoint_name(m, "mixer_out")
     x = x + m
     if "cross" in p and memory is not None:
-        h = rms_norm(x, p["ln_x"], cfg.norm_eps)
+        h = _branch_in(x, p["ln_x"], cfg)
         x = x + attention(h, p["cross"], cfg, kind="cross", memory=memory)
     if "moe" in p:
-        h = rms_norm(x, p["ln2"], cfg.norm_eps)
+        h = _branch_in(x, p["ln2"], cfg)
         f, aux = moe_ffn(h, p["moe"], cfg)
         x = x + f
     elif "mlp" in p:
-        h = rms_norm(x, p["ln2"], cfg.norm_eps)
+        h = _branch_in(x, p["ln2"], cfg)
         x = x + mlp(h, p["mlp"], cfg)
     x = part.shard(x, "batch", "act_seq", "embed")
     return x, aux
@@ -249,9 +252,37 @@ def _embed(params, cfg: ModelConfig, tokens):
     ``embedding``, whose sharding rules DTensor has (a vocab-split table
     too); plain indexing's backward has none in every torch release."""
     table = params["embed"]
-    rows = torch.nn.functional.embedding(tokens, table) if part.is_placed(table) else table[tokens]
+    if part.region_mesh(table) is not None:
+        rows = _embed_placed(table, tokens, part.region_mesh(table))
+    else:
+        rows = torch.nn.functional.embedding(tokens, table) if part.is_placed(table) else table[tokens]
     x = _d(rows)
     return x * _scalar(x, math.sqrt(cfg.d_model))
+
+
+def _embed_placed(table, tokens, mesh):
+    """The rows of a placed (V, d) table for ``tokens``, in a manual region:
+    each rank looks its tokens up in its block of the vocab (rows of other
+    blocks are zeros) and the blocks' rows are summed over the vocab's axis
+    (one real row plus zeros: the gather's values). DTensor's own
+    vocab-parallel embedding leaves a masked partial sum whose gradient
+    torch 2.11 cannot redistribute."""
+    vs = part.resolve(("vocab", None), tuple(table.shape), mesh)
+    ts = part.resolve(("batch",) + (None,) * (tokens.ndim - 1), tuple(tokens.shape), mesh)
+    ax = vs[0]
+
+    def body(tab, tok):
+        if ax is None:
+            return tab[tok]
+        n = tab.shape[0]
+        idx = tok.long() - part.axis_index(ax) * n
+        mine = (idx >= 0) & (idx < n)
+        return part.psum(tab[idx.clamp(0, n - 1)] * mine[..., None], ax)
+
+    out = P(*ts, None)
+    if not part.is_placed(tokens):
+        tokens = part.place_like(tokens, mesh.device_mesh, part.placements(ts, mesh))
+    return part.shard_map(body, mesh, in_specs=(vs, ts), out_specs=out, grad_axes=part.spec_axes(out))(table, tokens)
 
 
 def _embed_inputs(params, cfg: ModelConfig, batch):
@@ -276,8 +307,18 @@ def _encode(params, cfg: ModelConfig, frames):
     return rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
 
+def _branch_in(x, scale, cfg: ModelConfig):
+    """A branch's input from the residual stream: ``rms_norm``; where the
+    rules split the stream's sequence (``act_seq``), then whole over it, as
+    Megatron's sequence parallelism gathers it before the branch's matmuls
+    (torch 2.11's DTensor flattens batch and sequence for a matmul only where
+    the sequence is whole)."""
+    h = rms_norm(x, scale, cfg.norm_eps)
+    return part.shard(h, "batch", None, "embed") if part.get_rules().get("act_seq") else h
+
+
 def _logits(params, cfg: ModelConfig, x):
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    x = _branch_in(x, params["final_norm"], cfg)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     # bf16 operands, fp32 accumulation (the reference's preferred_element_type)
     logits = _mm32("bsd,dv->bsv", x.to(CDTYPE), head.to(CDTYPE))
@@ -310,6 +351,28 @@ def forward(params, cfg: ModelConfig, batch):
     return _logits(params, cfg, x), aux_total + torch.stack(auxs).sum()
 
 
+def _logsumexp(logits):
+    """``logsumexp`` over the vocab. Placed logits (the vocab split over
+    ``model``) take it as max + log(sum(exp(x - max))): a max and a sum
+    all-reduce of (B, S) numbers, where DTensor's ``logsumexp`` gathers
+    the whole vocab first. The max is a constant to the gradient."""
+    if not part.is_placed(logits):
+        return torch.logsumexp(logits, dim=-1)
+    m = logits.detach().amax(dim=-1, keepdim=True)
+    # the sum whole over the vocab's axis, its gradient too (DTensor would
+    # otherwise pick the gradient's layout, and then gather the vocab to match it)
+    total = part.settle_grad(_summed(torch.sum(torch.exp(logits - m), dim=-1)))
+    return torch.log(total) + m[..., 0]
+
+
+def _summed(t):
+    """A placed ``t`` with its partial sums reduced (``Partial`` -> ``Replicate``)."""
+    from torch.distributed.tensor import Partial, Replicate
+
+    pl = tuple(Replicate() if isinstance(p, Partial) else p for p in t.placements)
+    return t if pl == tuple(t.placements) else t.redistribute(t.device_mesh, pl)
+
+
 def loss_fn(params, cfg: ModelConfig, batch):
     """Mean next-token cross-entropy over the positions whose label is >= 0,
     in float32, plus ``cfg.aux_loss_coef`` times the MoE balance loss. On
@@ -320,13 +383,20 @@ def loss_fn(params, cfg: ModelConfig, batch):
         pad = torch.full(batch["img"].shape[:2], -1, dtype=labels.dtype, device=labels.device)
         labels = torch.cat([pad, labels], dim=1)
     mask = labels >= 0
-    lse = torch.logsumexp(logits, dim=-1)
+    lse = _logsumexp(logits)
     # the label's logit: a gather equals the JAX package's masked sum, which
     # adds that one logit to zeros; on a mesh the logits' vocab axis is
     # split, and the masked sum (a partial sum per shard) is what runs
     if part.is_placed(logits):
-        iota_v = torch.arange(logits.shape[-1], dtype=labels.dtype, device=labels.device)
+        from torch.distributed.tensor import Replicate, Shard
+
+        # the vocab iota split as the logits' vocab axis, so the mask, the
+        # masked sum and its gradient stay split too
+        iota_v = part.place_like(torch.arange(logits.shape[-1], dtype=labels.dtype, device=labels.device),
+                                 logits.device_mesh, [Shard(0) if pl == Shard(logits.ndim - 1) else Replicate()
+                                                      for pl in logits.placements])
         ll = torch.sum(torch.where(labels[..., None] == iota_v, logits, 0.0), dim=-1)
+        ll = part.settle_grad(_summed(ll))  # whole over the vocab's axis, its gradient too
     else:
         ll = torch.take_along_dim(logits, labels.clamp(min=0).long()[..., None], dim=-1)[..., 0]
     nll = torch.where(mask, lse - ll, torch.zeros((), dtype=lse.dtype, device=lse.device))
@@ -400,21 +470,21 @@ def _block_decode(x1, p, cfg, kind, cache, pos):
     return x1, new_cache
 
 
-def _write_back(stacked, group, new):
+def _write_back(stacked, group, sliced, new):
     """Copy group ``g``'s new leaves into the stacked cache where a leaf is
-    a new tensor (the recurrent states); attention leaves were updated in
-    place through their views."""
+    a new tensor (the recurrent states); attention leaves come back as the
+    views of ``sliced`` they were updated in place through."""
     for k, v in new.items():
-        if stacked[k][group].data_ptr() != v.data_ptr():
+        if v is not sliced[k]:
             stacked[k][group].copy_(v)
 
 
 def decode_step(params, cfg: ModelConfig, token, pos, cache):
-    """token: (B,) int; pos: int (slot of the new token).
+    """token: (B,) int; pos: slot of the new token, an int or a 0-d tensor.
 
     Returns (logits (B,V), cache): the cache's tensors are updated in
     place and the same tree is returned."""
-    pos = int(pos)
+    pos = position(pos)
     x = _embed(params, cfg, token)[:, None]  # (B,1,d)
     new_prefix = []
     for p, c in zip(params.get("prefix", []), cache.get("prefix", [])):
@@ -425,8 +495,9 @@ def decode_step(params, cfg: ModelConfig, token, pos, cache):
         pslice = _slice(params["stack"], g)
         for p_i, (kind, _) in enumerate(kinds):
             stacked = cache["stack"][p_i]
-            x, nc = _block_decode(x, pslice[p_i], cfg, kind, _slice(stacked, g), pos)
-            _write_back(stacked, g, nc)
+            sliced = _slice(stacked, g)
+            x, nc = _block_decode(x, pslice[p_i], cfg, kind, sliced, pos)
+            _write_back(stacked, g, sliced, nc)
     logits = _logits(params, cfg, x)[:, 0]
     new_cache = {"stack": list(cache["stack"])}
     if new_prefix:
@@ -442,7 +513,7 @@ def prefill(params, cfg: ModelConfig, batch, cache_len: int | None = None):
     C = cache_len or S
 
     def block_prefill(x, p, kind):
-        h = rms_norm(x, p["ln1"], cfg.norm_eps)
+        h = _branch_in(x, p["ln1"], cfg)
         if kind in ("attn", "local"):
             m, kvc = attention_prefill(h, p["attn"], cfg, kind=kind, cache_len=C)
         elif kind == "ssm":
@@ -451,18 +522,17 @@ def prefill(params, cfg: ModelConfig, batch, cache_len: int | None = None):
             m, kvc = rg.rglru_block(h, p["rglru"], cfg, return_cache=True)
         x = x + m
         if "cross" in p and memory is not None:
-            h = rms_norm(x, p["ln_x"], cfg.norm_eps)
+            h = _branch_in(x, p["ln_x"], cfg)
             x = x + attention(h, p["cross"], cfg, kind="cross", memory=memory)
-            B = x.shape[0]
             kvc = dict(kvc,
-                       xk=(memory @ p["cross"]["wk"].to(x.dtype)).reshape(B, -1, cfg.n_kv_heads, cfg.d_head),
-                       xv=(memory @ p["cross"]["wv"].to(x.dtype)).reshape(B, -1, cfg.n_kv_heads, cfg.d_head))
+                       xk=_heads(memory @ p["cross"]["wk"].to(x.dtype), cfg.n_kv_heads, cfg.d_head, "seq_kv", "kv_heads"),
+                       xv=_heads(memory @ p["cross"]["wv"].to(x.dtype), cfg.n_kv_heads, cfg.d_head, "seq_kv", "kv_heads"))
         if "moe" in p:
-            h = rms_norm(x, p["ln2"], cfg.norm_eps)
+            h = _branch_in(x, p["ln2"], cfg)
             f, _ = moe_ffn(h, p["moe"], cfg)
             x = x + f
         elif "mlp" in p:
-            h = rms_norm(x, p["ln2"], cfg.norm_eps)
+            h = _branch_in(x, p["ln2"], cfg)
             x = x + mlp(h, p["mlp"], cfg)
         return x, kvc
 

@@ -98,21 +98,20 @@ def ssd_chunked(xh, dt, A, Bm, Cm, chunk: int, return_state: bool = False):
     return (y, final_state) if return_state else y
 
 
-def _ssd_placed(xh, dt, A, Bm, Cm, chunk: int):
+def _ssd_placed(xh, dt, A, Bm, Cm, chunk: int, return_state: bool = False):
     """:func:`ssd_chunked` of placed inputs: each (batch, head) block runs
-    on its own rank in a manual region; an input the blocks share (B and C
-    across heads, A across the batch) collects its gradient as the sum of
-    the blocks'."""
+    on its own rank in a manual region (the sequence whole: the recurrence
+    runs along it); an input the blocks share (B and C across heads, A
+    across the batch) collects its gradient as the sum of the blocks'."""
     mesh = part.region_mesh(xh)
     if mesh is None:
-        return ssd_chunked(xh, dt, A, Bm, Cm, chunk)
-    xs = part.resolve(("batch", "seq", "ssm_heads", None), tuple(xh.shape), mesh)
-    if xs[1] is not None:
-        return ssd_chunked(xh, dt, A, Bm, Cm, chunk)
+        return ssd_chunked(xh, dt, A, Bm, Cm, chunk, return_state)
+    xs = part.resolve(("batch", None, "ssm_heads", None), tuple(xh.shape), mesh)
     bs, hs = xs[0], xs[2]
-    return part.shard_map(lambda *a: ssd_chunked(*a, chunk), mesh,
+    out = (xs, P(bs, hs, None, None)) if return_state else xs
+    return part.shard_map(lambda *a: ssd_chunked(*a, chunk, return_state), mesh,
                           in_specs=(xs, P(bs, None, hs), P(hs), P(bs, None, None), P(bs, None, None)),
-                          out_specs=xs, grad_axes=part.spec_axes(xs))(xh, dt, A, Bm, Cm)
+                          out_specs=out, grad_axes=part.spec_axes(xs))(xh, dt, A, Bm, Cm)
 
 
 def ssm_block(x, p, cfg: ModelConfig, return_cache: bool = False):
@@ -127,9 +126,9 @@ def ssm_block(x, p, cfg: ModelConfig, return_cache: bool = False):
     dt = F.softplus(dt.float() + p["dt_bias"])
     A = -torch.exp(p["A_log"])
     xh = xs.reshape(B, S, H, Pd)
-    xh = part.shard(xh, "batch", "seq", "ssm_heads", None)
+    xh = part.shard(xh, "batch", None, "ssm_heads", None)
     if return_cache:
-        y, final_state = ssd_chunked(xh, dt, A, Bc, Cc, cfg.ssm_chunk, return_state=True)
+        y, final_state = _ssd_placed(xh, dt, A, Bc, Cc, cfg.ssm_chunk, return_state=True)
     else:
         y, final_state = _ssd_placed(xh, dt, A, Bc, Cc, cfg.ssm_chunk), None
     y = y + p["D"][None, None, :, None] * xh.float()

@@ -147,6 +147,24 @@ def is_placed(x) -> bool:
     return isinstance(x, torch.Tensor) and hasattr(x, "device_mesh") and hasattr(x, "placements")
 
 
+def is_shape_only(x) -> bool:
+    """Whether ``x`` is a tensor with a shape and no values: on the ``meta``
+    device or a ``FakeTensor`` (a DTensor of such shards too)."""
+    from torch._subclasses.fake_tensor import is_fake
+
+    return isinstance(x, torch.Tensor) and (x.is_meta or is_fake(x))
+
+
+def place_like(t, device_mesh, placements):
+    """A plain tensor ``t``, the same on every rank, as a DTensor with
+    ``placements`` on ``device_mesh``: each rank keeps its own block (no
+    collective)."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    rep = DTensor.from_local(t, device_mesh, [Replicate()] * device_mesh.ndim, run_check=False)
+    return rep.redistribute(device_mesh, tuple(placements))
+
+
 def mesh_device(device_mesh) -> torch.device:
     """The device of this rank's shards on a ``DeviceMesh``."""
     dt = device_mesh.device_type
@@ -328,6 +346,32 @@ class _AllReduce(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return (g * ctx.scale if ctx.scale != 1 else g), None, None, None
+
+
+class _Settle(torch.autograd.Function):
+    """Identity; the gradient is laid out as the forward value was."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.mesh, ctx.placements = x.device_mesh, tuple(x.placements)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if is_placed(g) and tuple(g.placements) != ctx.placements:
+            g = g.redistribute(ctx.mesh, ctx.placements)
+        return g
+
+
+def settle_grad(x):
+    """``x``, whose gradient is redistributed to ``x``'s placements where it
+    arrives (a partial sum from a manual region is reduced there). Without
+    it DTensor lays such a gradient out as the next op's strategy likes,
+    and may split a dim that does not divide (1500 frames over 16 ranks),
+    which its own reshapes then cannot view. Plain tensors pass through."""
+    if not is_placed(x) or not x.requires_grad:
+        return x
+    return _Settle.apply(x)
 
 
 def axis_index(axis: str) -> int:

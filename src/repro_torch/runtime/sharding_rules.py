@@ -27,7 +27,7 @@ import torch
 
 from ..configs.base import ModelConfig, param_count
 from ..core.tree import children, leaf_paths, tree_map
-from .partitioning import NamedSharding, P, is_placed, mesh_device
+from .partitioning import NamedSharding, P, is_placed, is_shape_only, mesh_device
 
 FSDP_THRESHOLD = 2_000_000_000
 SEQPAR_THRESHOLD = 8_000_000_000  # residual-stream sequence parallelism
@@ -178,8 +178,10 @@ def place(tree, shardings):
     by its :class:`NamedSharding` (a tree of them, or one for every leaf),
     on the mesh's device. Rank 0's values are the ones placed (a
     ``distribute_tensor`` scatter), so ranks that drew different values
-    still agree. DTensor leaves are redistributed."""
-    from torch.distributed.tensor import distribute_tensor
+    still agree. DTensor leaves are redistributed where their placements
+    differ and kept where they agree. A shape-only leaf (``meta`` or fake)
+    becomes a DTensor of this rank's shape-only block, with no copy."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
 
     flat = [leaf for _, leaf in leaf_paths(tree)]
     shs = [shardings] * len(flat) if isinstance(shardings, NamedSharding) else \
@@ -190,7 +192,14 @@ def place(tree, shardings):
     for leaf, sh in zip(flat, shs, strict=True):
         dm = sh.mesh.device_mesh
         if is_placed(leaf):
-            out.append(leaf.redistribute(dm, sh.placements))
+            same = leaf.device_mesh == dm and tuple(leaf.placements) == tuple(sh.placements)
+            out.append(leaf if same else leaf.redistribute(dm, sh.placements))
+            continue
+        if is_shape_only(leaf):
+            size = tuple(s.stop - s.start for s in sh.local_slices(tuple(leaf.shape)))
+            local = torch.empty(size, dtype=leaf.dtype, device=leaf.device)
+            out.append(DTensor.from_local(local, dm, sh.placements, run_check=False, shape=leaf.shape,
+                                          stride=leaf.stride()))
             continue
         t = leaf if isinstance(leaf, torch.Tensor) else torch.from_numpy(np.asarray(leaf))
         out.append(distribute_tensor(t.detach().to(mesh_device(dm)), dm, sh.placements))

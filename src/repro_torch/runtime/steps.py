@@ -119,8 +119,12 @@ def batch_pspecs(batch_shapes, mesh):
 
 def batch_to(batch, device):
     """Every leaf of ``batch`` as a tensor on ``device`` (numpy arrays are
-    copied over; tensors already there come back as they are)."""
+    copied over; tensors already there come back as they are). Placed
+    (DTensor) and shape-only (``meta``, fake) leaves are kept as they are:
+    they have a layout, or no values, to move."""
     def one(x):
+        if part.is_placed(x) or part.is_shape_only(x):
+            return x
         t = torch.from_numpy(np.asarray(x)) if not isinstance(x, torch.Tensor) else x
         return t.to(device, non_blocking=True)
 
@@ -331,15 +335,37 @@ def _mesh_train_step(cfg: ModelConfig, mesh, loss_and_grads, *, lr, grad_clip, c
     return pod_step
 
 
+def _replicating(tree):
+    """Where ``tree``'s leaves are placed, DTensor's ``implicit_replication``
+    (the plain tensors a step makes, its masks and positions, join as
+    replicated, as in the mesh train step); else nothing."""
+    import contextlib
+
+    if not any(part.is_placed(t) for _, t in leaf_paths(tree)):
+        return contextlib.nullcontext()
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    return implicit_replication()
+
+
 def make_prefill_step(cfg: ModelConfig):
+    """``step(params, batch) -> (last-token logits, cache)``; on placed
+    parameters the batch is placed by :func:`batch_pspecs` first."""
     def step(params, batch):
-        return prefill(params, cfg, batch)
+        with _replicating(params):
+            mesh = part.get_mesh()
+            if _placing(mesh) and any(part.is_placed(t) for _, t in leaf_paths(params)):
+                batch = place_batch(batch, mesh)
+            return prefill(params, cfg, batch)
 
     return step
 
 
 def make_serve_step(cfg: ModelConfig):
+    """``step(params, cache, token, pos) -> (logits, cache)``: one decode
+    step; ``pos`` is an int or a 0-d tensor."""
     def step(params, cache, token, pos):
-        return decode_step(params, cfg, token, pos, cache)
+        with _replicating(params):
+            return decode_step(params, cfg, token, pos, cache)
 
     return step

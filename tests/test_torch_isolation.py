@@ -42,11 +42,19 @@ def test_import_leaves_jax_and_repro_out_of_sys_modules():
     code = ("import sys, repro_torch.core, repro_torch.kernels, repro_torch.core.lossless.engine, "
             "repro_torch.checkpoint, repro_torch.data, repro_torch.testing, repro_torch.launch.compressd, "
             "repro_torch.optim, repro_torch.configs, repro_torch.models, repro_torch.models.convert, "
-            "repro_torch.launch.serve; "
+            "repro_torch.launch.serve, repro_torch.launch.dryrun; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=env, check=True)
     assert out.stdout.strip() == "[]"
+
+
+def test_importing_the_dry_run_starts_no_process_group():
+    code = ("import torch.distributed as dist, repro_torch.launch.dryrun, repro_torch.launch.mesh; "
+            "print(dist.is_initialized())")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=env, check=True)
+    assert out.stdout.strip() == "False"
 
 
 def test_compressor_runs_on_the_card_unless_asked_for_cpu():

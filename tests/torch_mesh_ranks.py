@@ -96,7 +96,46 @@ with open(ARGS[0], "rb") as f:
     cases = pickle.load(f)
 out = {}
 src_now = None
+
+
+def serve_case(case):
+    # prefill on the placed parameters, then decode steps from the one-device
+    # prefill's cache placed by cache_pspecs; every output gathered whole
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import leaf_paths, tree_map
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import init_params
+    from repro_torch.runtime import partitioning as part
+    from repro_torch.runtime import sharding_rules as rules_mod
+    from repro_torch.runtime.partitioning import NamedSharding
+    from repro_torch.runtime.steps import make_prefill_step, make_serve_step
+    mesh = make_mesh(*case["mesh"], device_type="cpu")
+    cfg = dataclasses.replace(get_config(case["arch"]).scaled(), **case["cfg"])
+    params = init_params(cfg, torch.Generator().manual_seed(1), "cpu")
+    for path, leaf in leaf_paths(params):  # a sharper router: no top-k near-tie for rounding to flip
+        if path.endswith("moe_router"):
+            leaf.mul_(case.get("router_scale", 1.0))
+    rules = rules_mod.activation_rules(cfg, mesh)
+    placed = rules_mod.place(params, rules_mod.tree_shardings(params, cfg, mesh))
+    cache = rules_mod.place(case["cache"], tree_map(lambda s: NamedSharding(mesh, s),
+                                                    rules_mod.cache_pspecs(case["cache"], cfg, mesh, rules)))
+    whole = lambda t: t.full_tensor().float().numpy()
+    with part.mesh_rules(mesh, rules):
+        logits, _ = make_prefill_step(cfg)(placed, case["batch"])
+        res = {"prefill": whole(logits), "decode": []}
+        step = make_serve_step(cfg)
+        for i, tok in enumerate(case["tokens"]):
+            tok = rules_mod.place(torch.from_numpy(tok), NamedSharding(mesh, rules_mod.P("data")))
+            lg, cache = step(placed, cache, tok, case["pos"] + i)
+            res["decode"].append(whole(lg))
+    res["cache"] = [whole(t) for _, t in leaf_paths(cache)]
+    return res
+
+
 for name, case in cases.items():
+    if case.get("kind") == "serve":
+        out[name] = serve_case(case)
+        continue
     if case["src"] != src_now:  # a planted fault's copy of the port: import it afresh
         for k in [k for k in sys.modules if k == "repro_torch" or k.startswith("repro_torch.")]:
             del sys.modules[k]
