@@ -21,7 +21,11 @@ Phases, in order; any failure exits non-zero:
      129, 257, 513}, Y in {1, 7, 9}, X == 1, a 700-plane march) with forced
      outliers and int32 saturation, an all-outlier and a one-outlier field,
      and its quantization against IEEE division on random float bit
-     patterns and values next to rounding ties;
+     patterns and values next to rounding ties; the Huffman encode and
+     decode (payload, chunk sizes and symbols exact) at ragged lengths up to
+     512^3 on uniform, 90 % center-code, one-symbol and 16-bit-deep
+     streams, the decode also after a bit flip, a truncation and chunk
+     offsets past the stream's end;
      then the planner (predictor="auto") on the card and on the CPU over the
      same sampled blocks of the 512^3 field below: the same PredictorPlan,
      candidate labels and scores (so the same trial bytes);
@@ -42,7 +46,8 @@ Phases, in order; any failure exits non-zero:
   6. per-kernel times at the paths' shapes (CUDA events) beside the plain
      version, the byte/operation bound and, for the histogram,
      torch.bincount as a library yardstick; the histogram also on a uniform
-     random stream of the main path's length;
+     random stream of the main path's length; the Huffman encode and decode
+     at the main path's hf input (no PyTorch call computes a Huffman code);
   7. where the time goes: one more compress + decompress of the field on
      each path under torch.profiler, by tracing span (host wall and device
      time) and by device kernel, with the device's idle share; the
@@ -173,21 +178,22 @@ MIN_AGREE = 0.9999         # code agreement, kernel vs plain
 # the paths of phase 4: preset (None: the default spec) and the kernels its
 # compress + decompress must launch
 PATHS = {
-    "main": (None, ("interp_encode", "interp_decode", "histogram256")),
+    "main": (None, ("interp_encode", "interp_decode", "histogram256", "hf_encode", "hf_decode")),
     "cusz_hi_tp": ("cusz_hi_tp", ("interp_encode", "interp_decode", "bitshuffle")),
     "fzgpu_like": ("fzgpu_like", ("lorenzo_encode", "bitshuffle")),
-    "cusz_l": ("cusz_l", ("lorenzo_encode", "histogram256")),
+    "cusz_l": ("cusz_l", ("lorenzo_encode", "histogram256", "hf_encode", "hf_decode")),
     # the planner's trials launch interp_encode and histogram256, the orchestrator's tp/fz/fzh trials bitshuffle
-    "cusz_hi_autoplan": ("cusz_hi_autoplan", ("interp_encode", "interp_decode", "histogram256", "bitshuffle")),
+    "cusz_hi_autoplan": ("cusz_hi_autoplan", ("interp_encode", "interp_decode", "histogram256", "bitshuffle",
+                                              "hf_encode", "hf_decode")),
 }
 # phase 5: presets and fields whose card container must equal the CPU path's byte for byte
 BYTE_EQUAL_96 = ("cusz_hi_auto", "cusz_hi_autoplan", "cusz_hi_crz", "cuszp2_like", "nonfinite")
 # phase 8: the field as a v3 stream of this many chunks, and the launches one
 # chunk_compress + decompress of it makes under the default spec: per chunk the
-# main path's 1 encode, 1 hf histogram and 2 decodes (verify's and the decode's)
+# main path's 1 encode, 1 hf histogram and hf encode, and 2 decodes (verify's and the decode's)
 V3_CHUNKS = 4
 V3_LAUNCHES = {"interp_encode": 4, "interp_decode": 8, "histogram256": 4, "bitshuffle": 0, "bitunshuffle": 0,
-               "lorenzo_encode": 0}
+               "lorenzo_encode": 0, "hf_encode": 4, "hf_decode": 8}
 GOLDEN_V3 = ("golden_v3", "golden_v3_bitflip", "golden_v3_trunc", "golden_v3_torn")
 # phase 9: whisper-small (src/repro/configs/whisper_small.py, arXiv:2212.04356) at its published
 # widths (d_model 768, 12 heads, d_ff 3072, vocab 51865, untied lm_head, qkv biases), depth cut
@@ -544,6 +550,131 @@ def phase_bits_lorenzo(device, g) -> None:
     say(f"lorenzo encode == plain (codes, ascending outlier indices, deltas) on {len(shapes)} shapes x 2 bounds "
         f"({n_out} outliers in all), an all-outlier and a one-outlier field, and on random float bit patterns "
         f"and values next to rounding ties at 2eb in {QUANT_BOUNDS}")
+    phase_huffman(device, g)
+
+
+HF_STREAMS = ("uniform", "center90", "one", "deep")
+HF_SIZES = (0, 1, 1023, 1024, 1025, 300_001, 10**6 + 3, 512**3 - 3)
+
+
+def hf_stream(kind: str, n: int, g):
+    """n symbols on the card for the hf kernels: uniform or 90 % center-code
+    bytes (hist_stream), one symbol everywhere (a one-entry codebook), or
+    symbol k with probability 2^-(k+1), whose codebook is length-limited to
+    16 bits from about 10^5 symbols on."""
+    import torch
+
+    if kind == "one":
+        return torch.full((n,), 128, dtype=torch.uint8, device=g.device)
+    if kind == "deep":
+        u = torch.rand(n, generator=g, device=g.device, dtype=torch.float64)
+        return (-torch.log2(1 - u)).floor().clamp(max=255).to(torch.uint8)
+    return hist_stream(kind, n, g)
+
+
+def hf_codebook(data) -> tuple:
+    """The host codebook of ``data`` as the engine builds it: (lens, codes)."""
+    import torch
+
+    from repro_torch.core.lossless import huffman as hf
+
+    lens = hf.code_lengths(torch.bincount(data, minlength=256).cpu().numpy())
+    codes, lens, *_ = hf.canonical_codes(lens)
+    return lens, codes
+
+
+def hf_decode_inputs(payload, chunk_bytes, device) -> tuple:
+    """hf_decode's inputs (bits, offs, lut, maxlen) from an encode's payload
+    and chunk sizes, as the engine derives them from the stream's header."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.lossless import huffman as hf
+
+    _, lens, first_code, sym_table, offsets, counts = hf.canonical_codes(payload[:256].cpu().numpy())
+    maxlen = int(lens.max())
+    lut = torch.from_numpy(hf._pair_lut(first_code, counts, sym_table, offsets, maxlen).view(np.int16)).to(device)
+    offs = np.frombuffer(hf.offset_table(chunk_bytes)["offs"], "<u4").astype(np.int64)
+    return payload[256 + 2 * chunk_bytes.size:], torch.from_numpy(offs).to(device), lut, maxlen
+
+
+def phase_huffman(device, g) -> None:
+    """The hf kernels against their plain versions, byte for byte: the
+    encode's payload and chunk sizes, the decode's symbols (== the input),
+    on HF_STREAMS at HF_SIZES; the decode also on a bit-flipped, a truncated
+    stream and chunk offsets past the stream's end."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import huffman as khf
+
+    deepest = 0
+    for kind in HF_STREAMS:
+        base = hf_stream(kind, max(HF_SIZES), g)
+        for n in HF_SIZES:
+            x = base[:n]
+            lens, codes = hf_codebook(x)
+            pk, cbk = khf.hf_encode(x, lens, codes)
+            pp, cbp = khf.hf_encode_plain(x, lens, codes)
+            check(torch.equal(pk, pp) and np.array_equal(cbk, cbp), f"hf_encode != plain (n={n}, stream {kind})")
+            del pp
+            if n == 0:
+                continue
+            inputs = hf_decode_inputs(pk, cbk, device)
+            dk = khf.hf_decode(*inputs, n)
+            check(torch.equal(dk, x), f"hf_decode(hf_encode(x)) != x (n={n}, stream {kind})")
+            check(torch.equal(khf.hf_decode_plain(*inputs, n), dk), f"hf_decode != plain (n={n}, stream {kind})")
+            if kind == "deep":
+                deepest = max(deepest, inputs[3])
+        del base
+    check(deepest == 16, f"the deep stream's longest code is {deepest} bits, not 16")
+    x = hf_stream("center90", max(HF_SIZES), g)
+    n = int(x.numel())
+    payload, cb = khf.hf_encode(x, *hf_codebook(x))
+    bits, offs, lut, maxlen = hf_decode_inputs(payload, cb, device)
+    flipped = bits.clone()
+    flipped[bits.numel() // 3] ^= 0x10
+    past = offs + (torch.arange(offs.numel(), device=device) >= 2) * (1 << 20)
+    damaged = {"a bit flip": (flipped, offs), "a truncation": (bits[: bits.numel() // 2], offs),
+               "offsets past the end": (bits, past)}
+    for label, (b, o) in damaged.items():
+        dk = khf.hf_decode(b, o, lut, maxlen, n)
+        check(torch.equal(dk, khf.hf_decode_plain(b, o, lut, maxlen, n)), f"hf_decode != plain after {label}")
+        check(not torch.equal(dk, x), f"hf_decode after {label} gave the clean stream")
+    say(f"hf_encode / hf_decode == plain byte for byte for n in {HF_SIZES}, streams {', '.join(HF_STREAMS)} "
+        f"(deep: {deepest}-bit codes); hf_decode == plain after {', '.join(damaged)}")
+
+
+def huffman_path_shapes(seq, iters: int) -> dict:
+    """The hf kernels at the main path's hf input ``seq``: each checked
+    against its plain version byte for byte, then the wrapper call timed with
+    CUDA events (the encode's includes its host read of the chunk sizes) and
+    the kernels alone by the profiler, beside the plain versions."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import huffman as khf
+
+    n = int(seq.numel())
+    lens, codes = hf_codebook(seq)
+    payload, cb = khf.hf_encode(seq, lens, codes)
+    pp, pcb = khf.hf_encode_plain(seq, lens, codes)
+    enc_err = int((payload.int() - pp.int()).abs().max()) if payload.shape == pp.shape else 255
+    check(enc_err == 0 and np.array_equal(cb, pcb), f"main-path shapes: hf_encode differs from plain by {enc_err}")
+    del pp
+    inputs = hf_decode_inputs(payload, cb, device=seq.device)
+    out = khf.hf_decode(*inputs, n)
+    dec_err = int((out.int() - khf.hf_decode_plain(*inputs, n).int()).abs().max())
+    check(dec_err == 0 and torch.equal(out, seq), f"main-path shapes: hf_decode differs from plain by {dec_err}")
+    del out
+    return {"n": n, "payload_bytes": int(payload.numel()), "maxlen": inputs[3], "encode_err": enc_err,
+            "decode_err": dec_err,
+            "encode_ms": cuda_ms(lambda: khf.hf_encode(seq, lens, codes), iters),
+            "encode_kernel_ms": kernel_device_ms(lambda: khf.hf_encode(seq, lens, codes), "hf_", iters),
+            "encode_plain_ms": cuda_ms(lambda: khf.hf_encode_plain(seq, lens, codes), 2),
+            "decode_ms": cuda_ms(lambda: khf.hf_decode(*inputs, n), iters),
+            "decode_kernel_ms": kernel_device_ms(lambda: khf.hf_decode(*inputs, n), "hf_decode", iters),
+            "decode_plain_ms": cuda_ms(lambda: khf.hf_decode_plain(*inputs, n), 2)}
 
 
 def _is_span(name: str) -> bool:
@@ -1260,8 +1391,8 @@ def phase_v3(x, device, smi: str, seed: int) -> dict:
     t_s = time.perf_counter() - t0
     shard_launches = launch_counts()
     check(sb == buf, "v3: shard_compress over [cuda:0] * 4 != chunk_compress")
-    check(shard_launches["interp_encode"] == 4 and shard_launches["histogram256"] == 4
-          and shard_launches["interp_decode"] == 4, f"v3: shard_compress launches {shard_launches}")
+    check(all(shard_launches[k] == 4 for k in ("interp_encode", "histogram256", "interp_decode", "hf_encode",
+                                                 "hf_decode")), f"v3: shard_compress launches {shard_launches}")
     sync_buf = shard_compress(x, dev, sync=True)
     header, _ = frames.unpack_frames(buf)
     check(sync_buf == frames.pack_frames(header, [bytes(p) for p in payloads], sync=True),
@@ -1384,7 +1515,7 @@ def phase_checkpoint_state(device, smi: str, seed: int, directory: pathlib.Path)
     sync(device)
     t_restore = time.perf_counter() - t0
     launches = launch_counts()
-    for k in ("interp_encode", "interp_decode", "histogram256"):
+    for k in ("interp_encode", "interp_decode", "histogram256", "hf_encode", "hf_decode"):
         check(launches[k] > 0, f"checkpoint: kernel {k} was not launched on the save + restore path")
     check("salvage" not in rman, f"checkpoint: clean restore reported salvage {rman.get('salvage')}")
     worst = check_restored(state, restored, manifest, directory / "step_00000001", "checkpoint")
@@ -2000,7 +2131,7 @@ def phase_serve_entry(device, smi: str) -> dict:
     want = sum(2 * cfg.n_groups * 4 * min(cfg.window if kind == "local" else total, total) * cfg.n_kv_heads
                * cfg.d_head * 2 for kind in cfg.pattern)
     check(kv["raw_bytes"] == want, f"11a: raw bytes {kv['raw_bytes']} != {want}")
-    for k in ("interp_encode", "interp_decode", "histogram256"):
+    for k in ("interp_encode", "interp_decode", "histogram256", "hf_encode", "hf_decode"):
         check(launches[k] > 0, f"11a: kernel {k} was not launched")
     tok_s = 32 * 4 / r["decode_s"]
     say(f"  11a done in {wall:.1f} s ({smi}): prefill {r['prefill_s'] * 1e3:.1f} ms, kv offload+restore "
@@ -2096,7 +2227,7 @@ def phase_serve_paging(device, smi: str, seed: int) -> tuple[dict, dict]:
     t_kv = time.perf_counter() - t0
     launches = launch_counts()
     peak = peak_gib(device)
-    for k in ("interp_encode", "interp_decode", "histogram256"):
+    for k in ("interp_encode", "interp_decode", "histogram256", "hf_encode", "hf_decode"):
         check(launches[k] > 0, f"11b: kernel {k} was not launched on the serve_kv path")
     check(stats["frames"] == 12 and stats["raw_bytes"] == kv_bytes and "damage" not in stats, f"11b: stats {stats}")
     worst = check_kv_frames(stream, cache, restored, "11b")
@@ -2416,7 +2547,7 @@ def phase_train_cli(device, smi: str, seed: int, directory: pathlib.Path) -> dic
         launches = launch_counts()
     finally:
         train.get_config, train.Trainer = real_config, real_trainer
-    for k in ("interp_encode", "interp_decode", "histogram256"):
+    for k in ("interp_encode", "interp_decode", "histogram256", "hf_encode", "hf_decode"):
         check(launches[k] > 0, f"12b: kernel {k} was not launched on the trainer's checkpoint path")
     tr1, tr2 = first["trainer"], second["trainer"]
     check(second["start_step"] == CLI_STEPS and tr2.step == CLI_STEPS + 1,
@@ -2963,6 +3094,7 @@ def main() -> int:
     hs = histogram_path_shapes(seq, torch.Generator(device=device).manual_seed(args.seed + 2), 20)
     bs = bitshuffle_path_shapes(bufs["fzgpu_like"], device, 20)
     lz = lorenzo_path_shapes(x, bufs["fzgpu_like"], 10)
+    hf = huffman_path_shapes(seq, 10)
 
     def bound(nbytes: float, ops: float):
         tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
@@ -2980,6 +3112,8 @@ def main() -> int:
     # Lorenzo: reads the f32 field, writes u8 codes and 12 B per outlier; one division,
     # one rounding and a dozen integer operations per point
     lz_b = bound(5 * lz["points"] + 12 * lz["n_outliers"], 14 * lz["points"])
+    # the hf encode reads the n symbols and writes the payload; the decode reads the payload and writes n bytes
+    hf_b = bound(hf["n"] + hf["payload_bytes"], 0)
     launches = {name: results["paths"][name]["launches"] for name in PATHS}
     kernels = [
         {"name": "interp_encode", "route": "cuda", "source": "src/repro_torch/csrc/interp3d.cu",
@@ -3008,6 +3142,14 @@ def main() -> int:
          "replaces": "src/repro/kernels/lorenzo3d/lorenzo3d.py:22",
          "launches": launches["fzgpu_like"]["lorenzo_encode"], "path": "fzgpu_like", "max_abs_err": lz["err"],
          "ms": lz["ms"], "plain_ms": lz["plain_ms"], "bound_ms": lz_b[0], "bound_by": lz_b[1], "library_ms": None},
+        {"name": "hf_encode", "route": "cuda", "source": "src/repro_torch/csrc/huffman.cu",
+         "replaces": "src/repro/core/lossless/engine.py:182", "launches": launches["main"]["hf_encode"],
+         "path": "main", "max_abs_err": hf["encode_err"], "ms": hf["encode_ms"], "plain_ms": hf["encode_plain_ms"],
+         "bound_ms": hf_b[0], "bound_by": hf_b[1], "library_ms": None},
+        {"name": "hf_decode", "route": "cuda", "source": "src/repro_torch/csrc/huffman.cu",
+         "replaces": "src/repro/core/lossless/engine.py:357", "launches": launches["main"]["hf_decode"],
+         "path": "main", "max_abs_err": hf["decode_err"], "ms": hf["decode_ms"], "plain_ms": hf["decode_plain_ms"],
+         "bound_ms": hf_b[0], "bound_by": hf_b[1], "library_ms": None},
     ]
     say(f"main-path shapes: {nb} blocks of 17^3 (kernels == plain bit for bit, {keys.numel()} outlier keys), "
         f"hf input {hs['n']} bytes")
@@ -3016,9 +3158,15 @@ def main() -> int:
     say(f"histogram256 on a uniform random stream of {hs['n']} bytes: {hs['uniform_ms']:.4f} ms "
         f"(on the main path's stream: {hs['ms']:.4f} ms, the kernel alone {hs['kernel_ms']:.4f} ms)")
     say(f"lorenzo_encode: the wrapper call {lz['ms']:.4f} ms, the kernel alone {lz['kernel_ms']:.4f} ms")
+    say(f"hf at the main path's input ({hf['n']} B, payload {hf['payload_bytes']} B, {hf['maxlen']}-bit codes): "
+        f"hf_encode {hf['encode_ms']:.4f} ms per wrapper call (two kernels and the host read of the chunk sizes), "
+        f"the kernels alone {hf['encode_kernel_ms']:.4f} ms, plain {hf['encode_plain_ms']:.2f} ms; hf_decode "
+        f"{hf['decode_ms']:.4f} ms, the kernel alone {hf['decode_kernel_ms']:.4f} ms, plain {hf['decode_plain_ms']:.2f} "
+        f"ms; bound {hf_b[0]:.4f} ms ({hf_b[1]})")
     results["kernels"] = kernels
     results["histogram_uniform_ms"] = hs["uniform_ms"]
-    results["kernel_alone_ms"] = {"histogram256": hs["kernel_ms"], "lorenzo_encode": lz["kernel_ms"]}
+    results["kernel_alone_ms"] = {"histogram256": hs["kernel_ms"], "lorenzo_encode": lz["kernel_ms"],
+                                  "hf_encode": hf["encode_kernel_ms"], "hf_decode": hf["decode_kernel_ms"]}
     del im, blocks, ck, anchors, keys, vals, seq
 
     for k in kernels:

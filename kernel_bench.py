@@ -1,13 +1,13 @@
 #!/usr/bin/env python3
 """Time one kernel at its path's shapes on one NVIDIA card.
 
-    python3 kernel_bench.py --kernel interp|lorenzo|histogram [--src DIR]
+    python3 kernel_bench.py --kernel interp|lorenzo|histogram|hf [--src DIR]
                             [--splines S,S,S,S --schemes M,M,M,M] [--out FILE]
 
 Makes the 512^3 Nyx-like field of ``chip_smoke.py`` on the card from seed
 0 and runs ``chip_smoke.py``'s phase-6 code for the kernel: each is checked
 against its plain version, then timed with CUDA events over 20 launches
-(for lorenzo and histogram also the kernel alone, by the profiler).
+(for lorenzo, histogram and hf also the kernels alone, by the profiler).
 
 - ``interp``: the encode and decode kernels on the field's 17^3 blocks
   under the default spec's plan (``--splines`` and ``--schemes`` replace
@@ -15,7 +15,11 @@ against its plain version, then timed with CUDA events over 20 launches
 - ``lorenzo``: the Lorenzo encode on the field under the ``fzgpu_like``
   bound;
 - ``histogram``: histogram256 on the main path's hf input, and on a
-  uniform random stream of its length.
+  uniform random stream of its length;
+- ``hf``: the Huffman encode and decode kernels at the main path's hf
+  input (its codebook), each checked byte for byte against its plain
+  version; the wrapper calls by CUDA events, the kernels alone by the
+  profiler, the plain versions over 2 calls.
 
 ``--src`` names the ``src`` directory whose ``repro_torch`` is timed
 (default: this checkout's), so one call can time two checkouts in turns.
@@ -36,7 +40,7 @@ SIDE, SEED, ITERS = 512, 0, 20
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--kernel", required=True, choices=("interp", "lorenzo", "histogram"))
+    ap.add_argument("--kernel", required=True, choices=("interp", "lorenzo", "histogram", "hf"))
     ap.add_argument("--src", default=str(chip_smoke.ROOT / "src"))
     ap.add_argument("--splines", default=None, help="interp: comma-separated, one per level, in place of the plan's")
     ap.add_argument("--schemes", default=None, help="interp: comma-separated, one per level, in place of the plan's")
@@ -74,7 +78,10 @@ def main() -> int:
     else:
         seq = pipelines.decode(_sections_unpack(Compressor().compress(x))[1][0], device=device)  # the hf input
         del x
-        out.update(chip_smoke.histogram_path_shapes(seq, torch.Generator(device=device).manual_seed(SEED), ITERS))
+        if args.kernel == "hf":
+            out.update(chip_smoke.huffman_path_shapes(seq, ITERS))
+        else:
+            out.update(chip_smoke.histogram_path_shapes(seq, torch.Generator(device=device).manual_seed(SEED), ITERS))
     line = json.dumps(out)
     print(line)
     if args.out:

@@ -9,22 +9,18 @@ recursive bitmap levels of rre/rze) run on the host over a few bytes that
 cross over.
 
 * **hf** — frequencies from the histogram256 CUDA kernel
-  (repro_torch.kernels.histogram); emission merges adjacent symbols into
-  <=32-bit pairs, takes per-chunk prefix sums of their lengths, and adds
-  each pair's one or two 32-bit word contributions into int64 words with
-  ``scatter_add_``: contributions to a word occupy disjoint bits, so the
-  sum is their OR and exact. Decode walks all 1024-symbol chunks in
-  lockstep from the per-chunk byte offsets in the header (``offs``), two
-  symbols per 32-bit peek through a (len<<8 | sym) prefix table.
+  (repro_torch.kernels.histogram), the 256-leaf canonical codebook on the
+  host, then the Huffman CUDA kernels (repro_torch.kernels.huffman): the
+  encode sums each 1024-symbol chunk's code lengths, reads the chunk sizes
+  to the host once, and writes every chunk's bytes at its byte offset; the
+  decode walks every chunk from its byte offset in the header (``offs``),
+  two symbols per 32-bit peek through a (len<<8 | sym) prefix table.
 * **rre/rze** — flags and MSB-first bitmap packing on the device; the kept
   rows are a boolean-mask gather. Streams with the legacy hex-in-JSON
   header, which carries the bitmap's top level, decode the same way.
 * **tcms** — the bytewise sign-magnitude bijection.
 * **bit1** — the bit-plane shuffle and its inverse, the bitshuffle CUDA
   kernels (repro_torch.kernels.bitshuffle) over 8192-byte blocks.
-
-The arithmetic that the host coder does in uint32 with wraparound runs
-here in int64 with explicit 32-bit masks: torch's uint32 lacks shifts.
 
 An hf stream whose header has no ``offs`` table (streams written before
 the table existed) has no chunk entry points, so it decodes through the
@@ -38,12 +34,12 @@ import torch
 
 from ...kernels.bitshuffle import bitshuffle, bitunshuffle
 from ...kernels.histogram import histogram256
+from ...kernels.huffman import hf_decode, hf_encode
 from ..errors import ContainerError
 from . import bitshuffle as _bit
 from . import huffman as _hf
 from . import rre as _rre
 
-_M32 = 0xFFFFFFFF
 _PACK_WEIGHTS = (128, 64, 32, 16, 8, 4, 2, 1)  # np.packbits bit order
 
 
@@ -68,48 +64,10 @@ def _record(tel: dict | None, key: str, route: str) -> None:
 def hf_encode_device(data: torch.Tensor):
     """Device Huffman encode; payload bytes == ``huffman.encode``'s."""
     d = data.reshape(-1)
-    dev = d.device
-    n = int(d.numel())
     lens = _hf.code_lengths(_host(histogram256(d)))
     codes, lens, *_ = _hf.canonical_codes(lens)
-    nck = max(1, -(-n // _hf.CHUNK))
-    m = nck * _hf.CHUNK
-    half = _hf.CHUNK // 2
-    sym = torch.zeros(m, dtype=torch.int64, device=dev)
-    sym[:n] = d
-    ln = _tensor(lens.astype(np.int64), dev)[sym]
-    cw = _tensor(codes.astype(np.int64), dev)[sym]
-    ln[n:] = 0  # pad lanes carry zero-length codes
-    cw[n:] = 0
-    ln, cw = ln.view(-1, 2), cw.view(-1, 2)
-    v2 = (cw[:, 0] << ln[:, 1]) | cw[:, 1]  # pair value, <= 32 bits
-    l2 = ln[:, 0] + ln[:, 1]
-    del sym, ln, cw
-    cum = l2.view(nck, half).cumsum(1)
-    chunk_bytes = (cum[:, -1] + 7) >> 3
-    byte_off = torch.zeros(nck + 1, dtype=torch.int64, device=dev)
-    byte_off[1:] = chunk_bytes.cumsum(0)
-    bitpos = ((cum - l2.view(nck, half)) + (byte_off[:-1] << 3)[:, None]).reshape(-1)
-    del cum
-    total = int(byte_off[-1])
-    nwords = (total + 3) >> 2
-    # pair bits [bitpos, bitpos+l2) of the big-endian word stream: word w
-    # takes the high part, word w+1 the spill when it crosses a boundary
-    sh = (bitpos & 31) + l2  # <= 63
-    spill = sh > 32
-    hi = torch.where(spill, v2 >> (sh - 32).clamp(min=0), v2 << (32 - sh).clamp(min=0))
-    lo = torch.where(spill, (v2 << (64 - sh).clamp(max=63)) & _M32, torch.zeros_like(v2))
-    w = bitpos >> 5
-    del bitpos, sh, spill, v2, l2
-    words = torch.zeros(nwords + 2, dtype=torch.int64, device=dev)
-    words.scatter_add_(0, w, hi)
-    words.scatter_add_(0, w + 1, lo)
-    words = words[:nwords]
-    bits = torch.stack([(words >> 24) & 255, (words >> 16) & 255, (words >> 8) & 255, words & 255], 1)
-    bits = bits.to(torch.uint8).reshape(-1)[:total]
-    cb = torch.stack([chunk_bytes & 255, chunk_bytes >> 8], 1).to(torch.uint8).reshape(-1)
-    payload = torch.cat([_tensor(lens.astype(np.uint8), dev), cb, bits])
-    return payload, dict({"n": n}, **_hf.offset_table(_host(chunk_bytes).astype("<u2")))
+    payload, chunk_bytes = hf_encode(d, lens, codes)
+    return payload, dict({"n": int(d.numel())}, **_hf.offset_table(chunk_bytes))
 
 
 def hf_decode_device(payload: torch.Tensor, header: dict, tel: dict | None = None) -> torch.Tensor:
@@ -131,28 +89,9 @@ def hf_decode_device(payload: torch.Tensor, header: dict, tel: dict | None = Non
     if not 0 < maxlen <= _hf.MAXLEN:
         raise ContainerError(f"hf code lengths out of range (max {maxlen})")
     _, _, first_code, sym_table, offsets, counts = _hf.canonical_codes(lens.copy())
-    lut = _tensor(_hf._pair_lut(first_code, counts, sym_table, offsets, maxlen).astype(np.int64), dev)
-    bits = payload[256 + 2 * nchunks:]
-    pad = 8 + (-(int(bits.numel()) + 8)) % 4
-    bits = torch.cat([bits, torch.zeros(pad, dtype=torch.uint8, device=dev)]).view(-1, 4).to(torch.int64)
-    be = (bits[:, 0] << 24) | (bits[:, 1] << 16) | (bits[:, 2] << 8) | bits[:, 3]
-    be_s1 = torch.cat([be[1:], be.new_zeros(1)]) >> 1  # next word, pre-shifted once
-    qmax = int(be.numel()) - 1
-    cur = _tensor(np.frombuffer(offs, "<u4").astype(np.int64) * 8, dev)
-    shift = 32 - maxlen
-    half = _hf.CHUNK // 2
-    out = torch.empty((half, 2, nchunks), dtype=torch.uint8, device=dev)
-    for t in range(half):  # lanes past their chunk's last symbol decode junk, trimmed below
-        q = (cur >> 5).clamp_(max=qmax)
-        r = cur & 31
-        peek = ((be[q] << r) & _M32) | (be_s1[q] >> (31 - r))
-        e1 = lut[peek >> shift]
-        ls1 = e1 >> 8
-        e2 = lut[((peek << ls1) & _M32) >> shift]
-        cur = cur + ls1 + (e2 >> 8)
-        out[t, 0] = (e1 & 255).to(torch.uint8)
-        out[t, 1] = (e2 & 255).to(torch.uint8)
-    return out.view(_hf.CHUNK, nchunks).t().reshape(-1)[:n]
+    lut = _tensor(_hf._pair_lut(first_code, counts, sym_table, offsets, maxlen).view(np.int16), dev)
+    byte_offs = _tensor(np.frombuffer(offs, "<u4").astype(np.int64), dev)
+    return hf_decode(payload[256 + 2 * nchunks:].contiguous(), byte_offs, lut, maxlen, n)
 
 
 # ------------------------------------------------------------------ rre/rze

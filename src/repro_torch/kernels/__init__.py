@@ -8,10 +8,11 @@ from __future__ import annotations
 from .build import COUNT_LOCK
 from .bitshuffle import ops as _bit
 from .histogram import ops as _hist
+from .huffman import ops as _hf
 from .interp3d import ops as _interp
 from .lorenzo3d import ops as _lor
 
-_TABLES = (_interp.LAUNCHES, _hist.LAUNCHES, _bit.LAUNCHES, _lor.LAUNCHES)
+_TABLES = (_interp.LAUNCHES, _hist.LAUNCHES, _bit.LAUNCHES, _lor.LAUNCHES, _hf.LAUNCHES)
 
 
 def launch_counts() -> dict[str, int]:

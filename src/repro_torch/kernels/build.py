@@ -26,7 +26,7 @@ import threading
 import time
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("interp3d", "histogram", "bitshuffle", "lorenzo3d")
+SOURCES = ("interp3d", "histogram", "bitshuffle", "lorenzo3d", "huffman")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-lineinfo",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

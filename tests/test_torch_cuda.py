@@ -370,6 +370,96 @@ def test_pw_rel_and_psnr_target_hold_on_the_card(cuda):
     assert 10 * np.log10(float(x.max() - x.min()) ** 2 / np.mean((y - x) ** 2)) >= 60.0
 
 
+# ------------------------------------------------------------ Huffman (slice 13)
+import repro_torch.core.lossless.engine as teng
+from repro_torch.core.lossless import huffman as thf
+from repro_torch.kernels import huffman as khf
+from torch_hf_streams import KINDS as HF_KINDS
+from torch_hf_streams import LENGTHS as HF_LENGTHS
+from torch_hf_streams import damaged as hf_damaged
+from torch_hf_streams import stream as hf_stream
+
+
+def _hf_codebook(data: np.ndarray):
+    codes, lens, *_ = thf.canonical_codes(thf.code_lengths(np.bincount(data, minlength=256)))
+    return lens, codes
+
+
+@pytest.mark.parametrize("n", HF_LENGTHS)
+@pytest.mark.parametrize("kind", HF_KINDS)
+def test_hf_kernels_match_plain(cuda, kind, n):
+    """Payload and chunk sizes of the encode kernels, and the decode kernel's
+    symbols, equal the plain versions and the host coder byte for byte; one
+    launch each."""
+    data = hf_stream(kind, n)
+    lens, codes = _hf_codebook(data)
+    d = torch.from_numpy(data).to(cuda)
+    reset_launch_counts()
+    payload, cb = khf.hf_encode(d, lens, codes)
+    pp, pcb = khf.hf_encode_plain(d, lens, codes)
+    assert torch.equal(payload, pp) and np.array_equal(cb, pcb)
+    ref, rh = thf.encode(data)
+    assert payload.cpu().numpy().tobytes() == ref and dict({"n": n}, **thf.offset_table(cb)) == rh
+    out = teng.hf_decode_device(payload, rh)
+    assert out.is_cuda and torch.equal(out, d)
+    assert launch_counts()["hf_encode"] == 1 and launch_counts()["hf_decode"] == (1 if n else 0)
+    assert np.array_equal(teng.hf_decode_device(payload.cpu(), rh).numpy(), data)
+
+
+@pytest.mark.parametrize("how", ["flip", "trunc", "offsets"])
+def test_hf_decode_kernel_equals_plain_on_damaged_streams(cuda, how):
+    """The kernel clamps its word reads as the plain version does, so damaged
+    bytes decode to the plain version's symbols (pinned on the CPU in
+    tests/test_torch_huffman.py)."""
+    n = 300_001
+    ref, rh = thf.encode(hf_stream("codes", n))
+    if how == "offsets":  # chunk entry points past the stream's end
+        offs = np.frombuffer(rh["offs"], "<u4").astype(np.int64)
+        offs[2:] += 1 << 20
+        rh = dict(rh, offs=offs.astype("<u4").tobytes())
+    else:
+        ref = hf_damaged(ref, n, how)
+    p = torch.from_numpy(np.frombuffer(ref, np.uint8).copy())
+    assert torch.equal(teng.hf_decode_device(p.to(cuda), rh).cpu(), teng.hf_decode_device(p, rh))
+
+
+def test_hf_engine_launches_its_kernels(cuda):
+    """The engine's hf twins run on the kernels: an encode is one histogram256
+    and one hf_encode, a decode one hf_decode; an empty stream decodes
+    without a launch."""
+    d = torch.from_numpy(hf_stream("codes", 5000)).to(cuda)
+    reset_launch_counts()
+    payload, header = teng.hf_encode_device(d)
+    assert {k: launch_counts()[k] for k in ("histogram256", "hf_encode", "hf_decode")} == \
+        {"histogram256": 1, "hf_encode": 1, "hf_decode": 0}
+    assert torch.equal(teng.hf_decode_device(payload, header), d) and launch_counts()["hf_decode"] == 1
+    empty, eh = teng.hf_encode_device(d[:0])
+    assert empty.numel() == 258 and teng.hf_decode_device(empty, eh).numel() == 0
+    assert launch_counts()["hf_encode"] == 2 and launch_counts()["hf_decode"] == 1
+
+
+def test_hf_wrappers_check_their_inputs(cuda):
+    data = hf_stream("codes", 5000)
+    lens, codes = _hf_codebook(data)
+    d = torch.from_numpy(data).to(cuda)
+    with pytest.raises(ValueError):
+        khf.hf_encode(d.int(), lens, codes)
+    with pytest.raises(ValueError):
+        khf.hf_encode(d[::2], lens, codes)
+    payload, cb = khf.hf_encode(d, lens, codes)
+    bits = payload[256 + 2 * cb.size:]
+    offs = torch.zeros(cb.size, dtype=torch.int64, device=cuda)
+    lut = torch.zeros(1 << 10, dtype=torch.int16, device=cuda)
+    with pytest.raises(ValueError):
+        khf.hf_decode(bits, offs, lut, 17, 5000)
+    with pytest.raises(ValueError):
+        khf.hf_decode(bits, offs, lut.int(), 10, 5000)
+    with pytest.raises(ValueError):
+        khf.hf_decode(bits, offs[:-1], lut, 10, 5000)
+    with pytest.raises(ValueError):
+        khf.hf_decode(bits, offs.cpu(), lut, 10, 5000)
+
+
 # ------------------------------------------------------ chunked frames (v3)
 def _walk(shape, seed=0):
     return np.random.default_rng(seed).standard_normal(shape).astype(np.float32).cumsum(0).cumsum(1)

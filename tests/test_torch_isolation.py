@@ -14,6 +14,7 @@ from repro_torch.core import Compressor, CompressorSpec, chunk_compress
 from repro_torch.core.lossless import get_stage, pipelines, register_stage
 from repro_torch.kernels import bitshuffle as bits
 from repro_torch.kernels import histogram as hist
+from repro_torch.kernels import huffman as khf
 from repro_torch.kernels import interp3d as interp
 from repro_torch.kernels import lorenzo3d as lor
 
@@ -144,6 +145,11 @@ def test_wrappers_raise_instead_of_falling_back():
         bits.bitunshuffle(torch.empty(8192, dtype=torch.uint8, device="meta"))
     with pytest.raises(ValueError):
         lor.lorenzo_encode(torch.empty((4, 4, 4), device="meta"), 0.1, 3)
+    with pytest.raises(ValueError):
+        khf.hf_encode(torch.empty(16, dtype=torch.uint8, device="meta"), np.ones(256, np.uint8), np.zeros(256, np.uint32))
+    with pytest.raises(ValueError):
+        khf.hf_decode(torch.empty(16, dtype=torch.uint8, device="meta"), torch.zeros(1, dtype=torch.int64, device="meta"),
+                      torch.zeros(2, dtype=torch.int16, device="meta"), 1, 16)
     steps = CompressorSpec().levels
     from repro_torch.core.stencils import build_steps
 
