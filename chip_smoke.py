@@ -24,8 +24,9 @@ Phases, in order; any failure exits non-zero:
      patterns and values next to rounding ties; the Huffman encode and
      decode (payload, chunk sizes and symbols exact) at ragged lengths up to
      512^3 on uniform, 90 % center-code, one-symbol and 16-bit-deep
-     streams, the decode also after a bit flip, a truncation and chunk
-     offsets past the stream's end;
+     streams, the encode also of views at odd offsets, the decode also of
+     bits at every alignment 0-15, after a bit flip, a truncation and chunk
+     offsets past the stream's end, and in four threads at once;
      then the planner (predictor="auto") on the card and on the CPU over the
      same sampled blocks of the 512^3 field below: the same PredictorPlan,
      candidate labels and scores (so the same trial bytes);
@@ -573,14 +574,15 @@ def hf_stream(kind: str, n: int, g):
 
 
 def hf_codebook(data) -> tuple:
-    """The host codebook of ``data`` as the engine builds it: (lens, codes)."""
+    """The host codebook of ``data`` as the engine builds it: (lens, codes,
+    counts), the counts being the symbol histogram it was built from."""
     import torch
 
     from repro_torch.core.lossless import huffman as hf
 
-    lens = hf.code_lengths(torch.bincount(data, minlength=256).cpu().numpy())
-    codes, lens, *_ = hf.canonical_codes(lens)
-    return lens, codes
+    counts = torch.bincount(data, minlength=256).cpu().numpy()
+    codes, lens, *_ = hf.canonical_codes(hf.code_lengths(counts))
+    return lens, codes, counts
 
 
 def hf_decode_inputs(payload, chunk_bytes, device) -> tuple:
@@ -594,30 +596,52 @@ def hf_decode_inputs(payload, chunk_bytes, device) -> tuple:
     _, lens, first_code, sym_table, offsets, counts = hf.canonical_codes(payload[:256].cpu().numpy())
     maxlen = int(lens.max())
     lut = torch.from_numpy(hf._pair_lut(first_code, counts, sym_table, offsets, maxlen).view(np.int16)).to(device)
-    offs = np.frombuffer(hf.offset_table(chunk_bytes)["offs"], "<u4").astype(np.int64)
+    offs = np.frombuffer(hf.offset_table(chunk_bytes)["offs"], "<u4").copy()
     return payload[256 + 2 * chunk_bytes.size:], torch.from_numpy(offs).to(device), lut, maxlen
+
+
+def at_alignment(t, align: int):
+    """A copy of the 1-D tensor ``t`` that starts ``align`` bytes past a
+    16-byte boundary."""
+    import torch
+
+    buf = torch.zeros(t.numel() + 32, dtype=t.dtype, device=t.device)
+    skip = (align - buf.data_ptr()) % 16
+    out = buf[skip:skip + t.numel()]
+    out.copy_(t)
+    check(out.data_ptr() % 16 == align, f"at_alignment: {out.data_ptr() % 16} != {align}")
+    return out
 
 
 def phase_huffman(device, g) -> None:
     """The hf kernels against their plain versions, byte for byte: the
-    encode's payload and chunk sizes, the decode's symbols (== the input),
-    on HF_STREAMS at HF_SIZES; the decode also on a bit-flipped, a truncated
-    stream and chunk offsets past the stream's end."""
+    encode's payload and chunk sizes (with the symbol counts, as the engine
+    calls it), the decode's symbols (== the input), on
+    HF_STREAMS at HF_SIZES; the encode of views at odd offsets; the decode
+    of bits at every alignment 0-15 of their 16-byte word, whole and
+    truncated; the decode after a bit flip, a truncation and chunk offsets
+    past the stream's end (up to the largest u32); four threads decoding
+    streams of different code lengths at once, each on its own stream."""
     import numpy as np
     import torch
 
+    from repro_torch.core.lossless import huffman as hf
     from repro_torch.kernels import huffman as khf
 
-    deepest = 0
+    deepest, aligned = 0, {}
     for kind in HF_STREAMS:
         base = hf_stream(kind, max(HF_SIZES), g)
         for n in HF_SIZES:
             x = base[:n]
-            lens, codes = hf_codebook(x)
-            pk, cbk = khf.hf_encode(x, lens, codes)
+            lens, codes, counts = hf_codebook(x)
+            pk, cbk = khf.hf_encode(x, lens, codes, counts)
             pp, cbp = khf.hf_encode_plain(x, lens, codes)
             check(torch.equal(pk, pp) and np.array_equal(cbk, cbp), f"hf_encode != plain (n={n}, stream {kind})")
             del pp
+            if n <= HF_ALIGN_SIZE:
+                ref, rh = hf.encode(x.cpu().numpy())
+                check(pk.cpu().numpy().tobytes() == ref and dict({"n": n}, **hf.offset_table(cbk)) == rh,
+                      f"hf_encode != the host coder (n={n}, stream {kind})")
             if n == 0:
                 continue
             inputs = hf_decode_inputs(pk, cbk, device)
@@ -626,29 +650,89 @@ def phase_huffman(device, g) -> None:
             check(torch.equal(khf.hf_decode_plain(*inputs, n), dk), f"hf_decode != plain (n={n}, stream {kind})")
             if kind == "deep":
                 deepest = max(deepest, inputs[3])
+            if n == HF_ALIGN_SIZE:
+                aligned[kind] = (x.clone(), inputs)
+        for k in (1, 3, 7, 13):  # views at odd offsets: the lanes' shifted loads
+            x = base[k:k + HF_ALIGN_SIZE]
+            lens, codes, counts = hf_codebook(x)
+            pk, cbk = khf.hf_encode(x, lens, codes, counts)
+            pp, cbp = khf.hf_encode_plain(x, lens, codes)
+            check(torch.equal(pk, pp) and np.array_equal(cbk, cbp), f"hf_encode of x[{k}:] != plain (stream {kind})")
         del base
     check(deepest == 16, f"the deep stream's longest code is {deepest} bits, not 16")
+    for kind, (x, (bits, offs, lut, maxlen)) in aligned.items():
+        n = int(x.numel())
+        cut = bits[: bits.numel() // 2]
+        plain_cut = khf.hf_decode_plain(cut, offs, lut, maxlen, n)
+        for align in range(16):
+            check(torch.equal(khf.hf_decode(at_alignment(bits, align), offs, lut, maxlen, n), x),
+                  f"hf_decode of bits at alignment {align} != x (stream {kind})")
+            check(torch.equal(khf.hf_decode(at_alignment(cut, align), offs, lut, maxlen, n), plain_cut),
+                  f"hf_decode of truncated bits at alignment {align} != plain (stream {kind})")
     x = hf_stream("center90", max(HF_SIZES), g)
     n = int(x.numel())
     payload, cb = khf.hf_encode(x, *hf_codebook(x))
     bits, offs, lut, maxlen = hf_decode_inputs(payload, cb, device)
     flipped = bits.clone()
     flipped[bits.numel() // 3] ^= 0x10
-    past = offs + (torch.arange(offs.numel(), device=device) >= 2) * (1 << 20)
+    past = offs.to(torch.int64) + (torch.arange(offs.numel(), device=device) >= 2) * (1 << 20)
+    past[-1] = 0xFFFFFFFF
     damaged = {"a bit flip": (flipped, offs), "a truncation": (bits[: bits.numel() // 2], offs),
-               "offsets past the end": (bits, past)}
+               "offsets past the end": (bits, past.to(torch.uint32))}
     for label, (b, o) in damaged.items():
         dk = khf.hf_decode(b, o, lut, maxlen, n)
         check(torch.equal(dk, khf.hf_decode_plain(b, o, lut, maxlen, n)), f"hf_decode != plain after {label}")
         check(not torch.equal(dk, x), f"hf_decode after {label} gave the clean stream")
+    del x, payload, bits, flipped, past
+    maxlens = hf_decode_in_threads(device, aligned)
     say(f"hf_encode / hf_decode == plain byte for byte for n in {HF_SIZES}, streams {', '.join(HF_STREAMS)} "
-        f"(deep: {deepest}-bit codes); hf_decode == plain after {', '.join(damaged)}")
+        f"(deep: {deepest}-bit codes), == the host coder up to {HF_ALIGN_SIZE}; "
+        f"hf_encode of views at offsets 1, 3, 7, 13; hf_decode of bits at alignments 0-15, whole and "
+        f"truncated; hf_decode == plain after {', '.join(damaged)}; four threads decoding {maxlens}-bit codes")
+
+
+HF_ALIGN_SIZE = 300_001
+
+
+def hf_decode_in_threads(device, streams: dict) -> list:
+    """Four threads on one card, each on its own CUDA stream, decoding the
+    streams of different code lengths at once (as shard_decompress does),
+    three times each; every decode == its input. Returns the maxlens."""
+    import contextlib
+    import threading
+
+    import torch
+
+    from repro_torch.kernels import huffman as khf
+
+    jobs = sorted(streams.values(), key=lambda v: v[1][3])
+    errors = []
+
+    def run(x, inputs):
+        try:
+            side = torch.cuda.stream(torch.cuda.Stream(device)) if device.type == "cuda" else contextlib.nullcontext()
+            with side:
+                outs = [khf.hf_decode(*inputs, int(x.numel())) for _ in range(3)]
+                if device.type == "cuda":
+                    torch.cuda.current_stream(device).synchronize()
+            if not all(torch.equal(o, x) for o in outs):
+                errors.append(f"maxlen {inputs[3]}")
+        except Exception as e:  # reported below
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=run, args=job) for job in jobs]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(60)
+    check(not errors and not any(t.is_alive() for t in threads), f"hf_decode in four threads: {errors}")
+    return [inputs[3] for _, inputs in jobs]
 
 
 def huffman_path_shapes(seq, iters: int) -> dict:
     """The hf kernels at the main path's hf input ``seq``: each checked
     against its plain version byte for byte, then the wrapper call timed with
-    CUDA events (the encode's includes its host read of the chunk sizes) and
+    CUDA events (the encode's includes its host read of the chunk table) and
     the kernels alone by the profiler, beside the plain versions."""
     import numpy as np
     import torch
@@ -656,21 +740,21 @@ def huffman_path_shapes(seq, iters: int) -> dict:
     from repro_torch.kernels import huffman as khf
 
     n = int(seq.numel())
-    lens, codes = hf_codebook(seq)
-    payload, cb = khf.hf_encode(seq, lens, codes)
+    lens, codes, counts = hf_codebook(seq)
+    payload, cb = khf.hf_encode(seq, lens, codes, counts)
     pp, pcb = khf.hf_encode_plain(seq, lens, codes)
     enc_err = int((payload.int() - pp.int()).abs().max()) if payload.shape == pp.shape else 255
     check(enc_err == 0 and np.array_equal(cb, pcb), f"main-path shapes: hf_encode differs from plain by {enc_err}")
     del pp
-    inputs = hf_decode_inputs(payload, cb, device=seq.device)
+    inputs = hf_decode_inputs(payload, cb, seq.device)
     out = khf.hf_decode(*inputs, n)
     dec_err = int((out.int() - khf.hf_decode_plain(*inputs, n).int()).abs().max())
     check(dec_err == 0 and torch.equal(out, seq), f"main-path shapes: hf_decode differs from plain by {dec_err}")
     del out
     return {"n": n, "payload_bytes": int(payload.numel()), "maxlen": inputs[3], "encode_err": enc_err,
             "decode_err": dec_err,
-            "encode_ms": cuda_ms(lambda: khf.hf_encode(seq, lens, codes), iters),
-            "encode_kernel_ms": kernel_device_ms(lambda: khf.hf_encode(seq, lens, codes), "hf_", iters),
+            "encode_ms": cuda_ms(lambda: khf.hf_encode(seq, lens, codes, counts), iters),
+            "encode_kernel_ms": kernel_device_ms(lambda: khf.hf_encode(seq, lens, codes, counts), "hf_", iters),
             "encode_plain_ms": cuda_ms(lambda: khf.hf_encode_plain(seq, lens, codes), 2),
             "decode_ms": cuda_ms(lambda: khf.hf_decode(*inputs, n), iters),
             "decode_kernel_ms": kernel_device_ms(lambda: khf.hf_decode(*inputs, n), "hf_decode", iters),
@@ -3159,7 +3243,7 @@ def main() -> int:
         f"(on the main path's stream: {hs['ms']:.4f} ms, the kernel alone {hs['kernel_ms']:.4f} ms)")
     say(f"lorenzo_encode: the wrapper call {lz['ms']:.4f} ms, the kernel alone {lz['kernel_ms']:.4f} ms")
     say(f"hf at the main path's input ({hf['n']} B, payload {hf['payload_bytes']} B, {hf['maxlen']}-bit codes): "
-        f"hf_encode {hf['encode_ms']:.4f} ms per wrapper call (two kernels and the host read of the chunk sizes), "
+        f"hf_encode {hf['encode_ms']:.4f} ms per wrapper call (one kernel and the host read of the chunk table), "
         f"the kernels alone {hf['encode_kernel_ms']:.4f} ms, plain {hf['encode_plain_ms']:.2f} ms; hf_decode "
         f"{hf['decode_ms']:.4f} ms, the kernel alone {hf['decode_kernel_ms']:.4f} ms, plain {hf['decode_plain_ms']:.2f} "
         f"ms; bound {hf_b[0]:.4f} ms ({hf_b[1]})")

@@ -11,10 +11,12 @@ cross over.
 * **hf** — frequencies from the histogram256 CUDA kernel
   (repro_torch.kernels.histogram), the 256-leaf canonical codebook on the
   host, then the Huffman CUDA kernels (repro_torch.kernels.huffman): the
-  encode sums each 1024-symbol chunk's code lengths, reads the chunk sizes
-  to the host once, and writes every chunk's bytes at its byte offset; the
-  decode walks every chunk from its byte offset in the header (``offs``),
-  two symbols per 32-bit peek through a (len<<8 | sym) prefix table.
+  encode, one launch into a payload sized from the histogram's counts,
+  scans the chunks' sizes on the card and writes every chunk's bytes at its
+  byte offset, then reads the u16 chunk table to the host; the decode
+  walks every chunk from its byte offset in the header (``offs``, passed
+  as the u32 the header stores), two symbols per 32-bit peek through a
+  (len<<8 | sym) prefix table.
 * **rre/rze** — flags and MSB-first bitmap packing on the device; the kept
   rows are a boolean-mask gather. Streams with the legacy hex-in-JSON
   header, which carries the bitmap's top level, decode the same way.
@@ -64,9 +66,9 @@ def _record(tel: dict | None, key: str, route: str) -> None:
 def hf_encode_device(data: torch.Tensor):
     """Device Huffman encode; payload bytes == ``huffman.encode``'s."""
     d = data.reshape(-1)
-    lens = _hf.code_lengths(_host(histogram256(d)))
-    codes, lens, *_ = _hf.canonical_codes(lens)
-    payload, chunk_bytes = hf_encode(d, lens, codes)
+    counts = _host(histogram256(d))
+    codes, lens, *_ = _hf.canonical_codes(_hf.code_lengths(counts))
+    payload, chunk_bytes = hf_encode(d, lens, codes, counts)
     return payload, dict({"n": int(d.numel())}, **_hf.offset_table(chunk_bytes))
 
 
@@ -90,7 +92,7 @@ def hf_decode_device(payload: torch.Tensor, header: dict, tel: dict | None = Non
         raise ContainerError(f"hf code lengths out of range (max {maxlen})")
     _, _, first_code, sym_table, offsets, counts = _hf.canonical_codes(lens.copy())
     lut = _tensor(_hf._pair_lut(first_code, counts, sym_table, offsets, maxlen).view(np.int16), dev)
-    byte_offs = _tensor(np.frombuffer(offs, "<u4").astype(np.int64), dev)
+    byte_offs = _tensor(np.frombuffer(offs, "<u4").copy(), dev)
     return hf_decode(payload[256 + 2 * nchunks:].contiguous(), byte_offs, lut, maxlen, n)
 
 

@@ -10,7 +10,7 @@ The codebook is built on the host; these take it as arrays.
 
 On a CUDA tensor each wrapper launches its kernel or raises; a CPU tensor,
 and only a CPU tensor, goes to the plain version beside it. ``LAUNCHES``
-counts wrapper calls that launched (an encode is two launches, counted once).
+counts wrapper calls that launched.
 """
 from __future__ import annotations
 
@@ -87,7 +87,7 @@ def hf_encode_plain(data: torch.Tensor, lens: np.ndarray, codes: np.ndarray):
 def hf_decode_plain(bits: torch.Tensor, offs: torch.Tensor, lut: torch.Tensor, maxlen: int, n: int) -> torch.Tensor:
     """Plain torch decode of ``n`` symbols from the bitstream ``bits`` (the
     payload after its chunk table), each chunk from its byte offset in
-    ``offs`` (int64), through the pair LUT ``lut`` (2^maxlen entries,
+    ``offs`` (uint32, as the header stores them, or int64), through the pair LUT ``lut`` (2^maxlen entries,
     ``len<<8 | sym``): all chunks in lockstep, two symbols per 32-bit peek.
     Word reads clamp to the zero-padded stream's last word."""
     dev = bits.device
@@ -120,10 +120,11 @@ def _lib():
     lib = library("huffman")
     vp, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.hf_decode.argtypes = [vp, i64, vp, vp, i32, i64, i64, vp, vp]
-    lib.hf_chunk_bytes.argtypes = [vp, i64, vp, i64, vp, vp]
-    lib.hf_emit.argtypes = [vp, i64, vp, vp, vp, i64, vp, vp]
-    for fn in (lib.hf_decode, lib.hf_chunk_bytes, lib.hf_emit):
+    lib.hf_encode.argtypes = [vp, i64, vp, i64, vp, i64, vp, i64, vp, vp, vp]
+    for fn in (lib.hf_decode, lib.hf_encode):
         fn.restype = ctypes.c_int
+    lib.hf_encode_scratch_bytes.argtypes = [i64]
+    lib.hf_encode_scratch_bytes.restype = i64
     return lib
 
 
@@ -145,40 +146,55 @@ def _raise_on(rc: int, name: str) -> None:
         raise KernelError(f"{name} launch failed with CUDA error {rc}")
 
 
-def hf_encode(data: torch.Tensor, lens: np.ndarray, codes: np.ndarray):
+def hf_encode(data: torch.Tensor, lens: np.ndarray, codes: np.ndarray, counts: np.ndarray):
     """Huffman-encode a flat uint8 tensor under the host codebook ``lens`` /
     ``codes``: the payload (on the input's device, bytes ==
-    ``huffman.encode``'s) and the chunk byte counts (host, ``<u2``)."""
+    ``huffman.encode``'s) and the chunk byte counts (host, ``<u2``).
+
+    ``counts``, the input's 256 symbol counts (the histogram the codebook
+    was built from), size the payload exactly before the one launch; the
+    CPU route does not need them. Counts that do not describe ``data`` raise
+    ValueError after the kernel has written only inside the payload."""
     if not _is_cuda(data, "hf_encode"):
         return hf_encode_plain(data, lens, codes)
     if data.dtype != torch.uint8 or data.dim() != 1 or not data.is_contiguous():
         raise ValueError(f"hf_encode takes a contiguous 1-D uint8 tensor, got {data.dtype} {tuple(data.shape)}")
     if lens.shape != (256,) or codes.shape != (256,) or int(lens.max(initial=0)) > MAXLEN:
         raise ValueError("hf_encode takes 256 code lengths of at most 16 bits and 256 codes")
+    counts = np.asarray(counts, np.int64).reshape(-1)
+    if counts.shape != (256,):
+        raise ValueError(f"hf_encode takes 256 symbol counts, got {counts.shape}")
     dev = data.device
     n = int(data.numel())
     nck = max(1, -(-n // CHUNK))
+    cap = int(counts @ lens.astype(np.int64)) // 8 + nck  # each chunk rounds its bits up to a byte
+    table = np.ascontiguousarray((codes.astype(np.uint32) << np.uint32(8)) | lens.astype(np.uint32))
+    at = -(-(256 + 2 * nck + cap) // 8) * 8  # hf_encode's scratch, after the payload
+    at_total = -(-2 * nck // 8) * 8  # where the bits' total lands in the host buffer, after the chunk table
+    lib = _lib()
     with torch.cuda.device(dev):
-        stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-        lens_t = _on(lens.astype(np.uint8), dev)
-        codes_t = _on(codes.astype(np.uint32).view(np.int32), dev)
-        cb = torch.empty(nck, dtype=torch.int64, device=dev)
-        _raise_on(_lib().hf_chunk_bytes(_ptr(data), n, _ptr(lens_t), nck, _ptr(cb), stream), "hf_chunk_bytes")
-        byte_off = torch.cumsum(cb, 0) - cb  # exclusive scan of the chunk sizes
-        chunk_bytes = cb.cpu().numpy()  # the one host read: the payload's size
-        payload = torch.empty(256 + 2 * nck + int(chunk_bytes.sum()), dtype=torch.uint8, device=dev)
-        payload[:256] = lens_t
-        _raise_on(_lib().hf_emit(_ptr(data), n, _ptr(lens_t), _ptr(codes_t), _ptr(byte_off), nck, _ptr(payload),
-                                 stream), "hf_emit")
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        scratch = int(lib.hf_encode_scratch_bytes(nck))
+        buf = torch.empty(at + scratch, dtype=torch.uint8, device=dev)
+        host = torch.empty(at_total + 8, dtype=torch.uint8, pin_memory=True)
+        rc = lib.hf_encode(_ptr(data), n, table.ctypes.data_as(ctypes.c_void_p), nck, _ptr(buf[at:]), scratch,
+                           _ptr(buf), cap, _ptr(host), _ptr(host[at_total:]), ctypes.c_void_p(stream))
+        _raise_on(rc, "hf_encode")
+        torch.cuda.current_stream(dev).synchronize()  # the one host read: the chunk table and the total
     count_launch(LAUNCHES, "hf_encode")
-    return payload, chunk_bytes.astype("<u2")
+    h = host.numpy()
+    total = int(h[at_total:].view("<i8")[0])
+    if total > cap:
+        raise ValueError(f"hf_encode: the symbol counts give {cap} bytes of bits, the input takes {total}")
+    return buf[:256 + 2 * nck + total], h[:2 * nck].view("<u2")
 
 
 def hf_decode(bits: torch.Tensor, offs: torch.Tensor, lut: torch.Tensor, maxlen: int, n: int) -> torch.Tensor:
     """Decode ``n`` uint8 symbols (on the input's device) from the bitstream
-    ``bits``, chunk c from byte ``offs[c]`` (int64), through the pair LUT
-    ``lut`` (int16, 2^maxlen entries ``len<<8 | sym``); bytes ==
-    ``huffman.decode``'s, damaged streams included."""
+    ``bits``, chunk c from byte ``offs[c]`` (uint32, as the header stores
+    them; the plain version also takes int64), through the pair LUT ``lut``
+    (int16, 2^maxlen entries ``len<<8 | sym``); bytes == ``huffman.decode``'s,
+    damaged streams included."""
     if not _is_cuda(bits, "hf_decode"):
         return hf_decode_plain(bits, offs, lut, maxlen, n)
     maxlen, n = int(maxlen), int(n)
@@ -187,8 +203,8 @@ def hf_decode(bits: torch.Tensor, offs: torch.Tensor, lut: torch.Tensor, maxlen:
         raise ValueError(f"hf_decode takes a contiguous 1-D uint8 bitstream, got {bits.dtype} {tuple(bits.shape)}")
     if not 0 < maxlen <= MAXLEN:
         raise ValueError(f"hf_decode takes code lengths 1-{MAXLEN}, got {maxlen}")
-    if offs.dtype != torch.int64 or offs.shape != (nchunks,) or offs.device != bits.device:
-        raise ValueError(f"hf_decode takes {nchunks} int64 chunk offsets on {bits.device}")
+    if offs.dtype != torch.uint32 or offs.shape != (nchunks,) or offs.device != bits.device:
+        raise ValueError(f"hf_decode takes {nchunks} uint32 chunk offsets on {bits.device}")
     if lut.dtype != torch.int16 or lut.shape != (1 << maxlen,) or lut.device != bits.device:
         raise ValueError(f"hf_decode takes an int16 LUT of {1 << maxlen} entries on {bits.device}")
     offs, lut = offs.contiguous(), lut.contiguous()

@@ -381,21 +381,23 @@ from torch_hf_streams import stream as hf_stream
 
 
 def _hf_codebook(data: np.ndarray):
-    codes, lens, *_ = thf.canonical_codes(thf.code_lengths(np.bincount(data, minlength=256)))
-    return lens, codes
+    counts = np.bincount(data, minlength=256)
+    codes, lens, *_ = thf.canonical_codes(thf.code_lengths(counts))
+    return lens, codes, counts
 
 
 @pytest.mark.parametrize("n", HF_LENGTHS)
 @pytest.mark.parametrize("kind", HF_KINDS)
 def test_hf_kernels_match_plain(cuda, kind, n):
-    """Payload and chunk sizes of the encode kernels, and the decode kernel's
-    symbols, equal the plain versions and the host coder byte for byte; one
-    launch each."""
+    """Payload and chunk sizes of the encode kernel, sized by the symbol
+    counts as the engine calls it, and the decode kernel's symbols, equal
+    the plain versions and the host coder (whose bytes the JAX package's
+    equal: tests/test_torch_huffman.py) byte for byte; one launch a call."""
     data = hf_stream(kind, n)
-    lens, codes = _hf_codebook(data)
+    lens, codes, counts = _hf_codebook(data)
     d = torch.from_numpy(data).to(cuda)
     reset_launch_counts()
-    payload, cb = khf.hf_encode(d, lens, codes)
+    payload, cb = khf.hf_encode(d, lens, codes, counts)
     pp, pcb = khf.hf_encode_plain(d, lens, codes)
     assert torch.equal(payload, pp) and np.array_equal(cb, pcb)
     ref, rh = thf.encode(data)
@@ -406,16 +408,103 @@ def test_hf_kernels_match_plain(cuda, kind, n):
     assert np.array_equal(teng.hf_decode_device(payload.cpu(), rh).numpy(), data)
 
 
-@pytest.mark.parametrize("how", ["flip", "trunc", "offsets"])
+def _at_alignment(t: torch.Tensor, align: int) -> torch.Tensor:
+    buf = torch.zeros(t.numel() + 32, dtype=t.dtype, device=t.device)
+    skip = (align - buf.data_ptr()) % 16
+    out = buf[skip:skip + t.numel()]
+    out.copy_(t)
+    assert out.data_ptr() % 16 == align
+    return out
+
+
+def _hf_decode_inputs(payload: bytes, header: dict, device):
+    buf = np.frombuffer(payload, np.uint8)
+    n = header["n"]
+    nck = max(1, -(-n // 1024))
+    _, lens, first_code, sym_table, offsets, counts = thf.canonical_codes(buf[:256].copy())
+    maxlen = int(lens.max())
+    lut = torch.from_numpy(thf._pair_lut(first_code, counts, sym_table, offsets, maxlen).view(np.int16)).to(device)
+    offs = torch.from_numpy(np.frombuffer(header["offs"], "<u4").copy()).to(device)
+    return torch.from_numpy(buf[256 + 2 * nck:].copy()).to(device), offs, lut, maxlen
+
+
+@pytest.mark.parametrize("align", range(16))
+def test_hf_decode_kernel_at_every_alignment_of_the_bits(cuda, align):
+    """The bits at each start alignment 0-15 of their 16-byte word (the
+    kernel loads from the base rounded down), whole and truncated, decode
+    as the plain version decodes them."""
+    n = 300_001
+    data = hf_stream("deep" if align % 2 else "codes", n)
+    ref, rh = thf.encode(data)
+    bits, offs, lut, maxlen = _hf_decode_inputs(ref, rh, cuda)
+    assert torch.equal(khf.hf_decode(_at_alignment(bits, align), offs, lut, maxlen, n).cpu(), torch.from_numpy(data))
+    cut = bits[: bits.numel() // 2]
+    assert torch.equal(khf.hf_decode(_at_alignment(cut, align), offs, lut, maxlen, n),
+                       khf.hf_decode_plain(cut, offs, lut, maxlen, n))
+
+
+@pytest.mark.parametrize("offset", [1, 3, 7, 13])
+def test_hf_encode_kernel_of_a_view_at_an_odd_offset(cuda, offset):
+    """x[offset:] (the lanes' loads shifted by the input's misalignment, the
+    ragged tail) encodes to the plain version's and the host coder's bytes."""
+    data = hf_stream("uniform" if offset == 13 else "codes", 300_001 + offset)
+    x = torch.from_numpy(data).to(cuda)[offset:]
+    lens, codes, counts = _hf_codebook(data[offset:])
+    payload, cb = khf.hf_encode(x, lens, codes, counts)
+    pp, pcb = khf.hf_encode_plain(x, lens, codes)
+    assert torch.equal(payload, pp) and np.array_equal(cb, pcb)
+    assert payload.cpu().numpy().tobytes() == thf.encode(data[offset:])[0]
+
+
+def test_hf_encode_kernel_raises_on_short_counts(cuda):
+    """Counts that do not describe the input size the payload short: the
+    kernel writes nothing past it and the wrapper raises."""
+    data = hf_stream("codes", 300_001)
+    lens, codes, counts = _hf_codebook(data)
+    with pytest.raises(ValueError):
+        khf.hf_encode(torch.from_numpy(data).to(cuda), lens, codes, counts // 2)
+    torch.cuda.synchronize()
+
+
+def test_hf_decode_kernel_in_four_threads_at_once(cuda):
+    """Four threads, each on its own CUDA stream, decode streams of four
+    different code lengths at once (as shard_decompress does)."""
+    import threading
+
+    jobs = []
+    for kind, n in (("one", 300_001), ("uniform", 300_001), ("deep", 20_000), ("codes", 300_001)):
+        data = hf_stream(kind, n)
+        ref, rh = thf.encode(data)
+        jobs.append((torch.from_numpy(data).to(cuda), _hf_decode_inputs(ref, rh, cuda)))
+    assert len({inputs[3] for _, inputs in jobs}) == 4
+    ok = []
+
+    def run(x, inputs):
+        with torch.cuda.stream(torch.cuda.Stream(cuda)):
+            outs = [khf.hf_decode(*inputs, int(x.numel())) for _ in range(3)]
+            torch.cuda.current_stream(cuda).synchronize()
+        ok.append(all(torch.equal(o, x) for o in outs))
+
+    threads = [threading.Thread(target=run, args=job) for job in jobs]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(60)
+    assert ok == [True] * 4
+
+
+@pytest.mark.parametrize("how", ["flip", "trunc", "offsets", "offsets-max"])
 def test_hf_decode_kernel_equals_plain_on_damaged_streams(cuda, how):
-    """The kernel clamps its word reads as the plain version does, so damaged
-    bytes decode to the plain version's symbols (pinned on the CPU in
-    tests/test_torch_huffman.py)."""
+    """Bytes past the stream read as zero, as the plain version's clamp to
+    its zero-padded last word gives, so damaged bytes decode to the plain
+    version's symbols (pinned on the CPU in tests/test_torch_huffman.py)."""
     n = 300_001
     ref, rh = thf.encode(hf_stream("codes", n))
-    if how == "offsets":  # chunk entry points past the stream's end
+    if how.startswith("offsets"):  # chunk entry points past the stream's end
         offs = np.frombuffer(rh["offs"], "<u4").astype(np.int64)
         offs[2:] += 1 << 20
+        if how == "offsets-max":
+            offs[1::2] = 0xFFFFFFFF
         rh = dict(rh, offs=offs.astype("<u4").tobytes())
     else:
         ref = hf_damaged(ref, n, how)
@@ -440,15 +529,17 @@ def test_hf_engine_launches_its_kernels(cuda):
 
 def test_hf_wrappers_check_their_inputs(cuda):
     data = hf_stream("codes", 5000)
-    lens, codes = _hf_codebook(data)
+    lens, codes, counts = _hf_codebook(data)
     d = torch.from_numpy(data).to(cuda)
     with pytest.raises(ValueError):
-        khf.hf_encode(d.int(), lens, codes)
+        khf.hf_encode(d.int(), lens, codes, counts)
     with pytest.raises(ValueError):
-        khf.hf_encode(d[::2], lens, codes)
-    payload, cb = khf.hf_encode(d, lens, codes)
+        khf.hf_encode(d[::2], lens, codes, counts)
+    with pytest.raises(ValueError):
+        khf.hf_encode(d, lens, codes, counts[:255])
+    payload, cb = khf.hf_encode(d, lens, codes, counts)
     bits = payload[256 + 2 * cb.size:]
-    offs = torch.zeros(cb.size, dtype=torch.int64, device=cuda)
+    offs = torch.zeros(cb.size, dtype=torch.uint32, device=cuda)
     lut = torch.zeros(1 << 10, dtype=torch.int16, device=cuda)
     with pytest.raises(ValueError):
         khf.hf_decode(bits, offs, lut, 17, 5000)
@@ -458,6 +549,8 @@ def test_hf_wrappers_check_their_inputs(cuda):
         khf.hf_decode(bits, offs[:-1], lut, 10, 5000)
     with pytest.raises(ValueError):
         khf.hf_decode(bits, offs.cpu(), lut, 10, 5000)
+    with pytest.raises(ValueError):
+        khf.hf_decode(bits, offs.to(torch.int64), lut, 10, 5000)
 
 
 # ------------------------------------------------------ chunked frames (v3)

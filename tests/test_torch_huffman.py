@@ -64,10 +64,10 @@ def test_hf_bytes_equal_the_jax_package_and_the_host_coder(kind, n):
 def test_plain_wrappers_are_the_cpu_route():
     """On CPU tensors the wrappers are their plain versions, launching nothing."""
     data = torch.from_numpy(stream("codes", 5000))
-    lens = thf.code_lengths(np.bincount(data.numpy(), minlength=256))
-    codes, lens, first_code, sym_table, offsets, counts = thf.canonical_codes(lens)
+    hist = np.bincount(data.numpy(), minlength=256)
+    codes, lens, first_code, sym_table, offsets, counts = thf.canonical_codes(thf.code_lengths(hist))
     before = dict(khf.LAUNCHES)
-    payload, cb = khf.hf_encode(data, lens, codes)
+    payload, cb = khf.hf_encode(data, lens, codes, hist)
     pp, pcb = khf.hf_encode_plain(data, lens, codes)
     assert torch.equal(payload, pp) and np.array_equal(cb, pcb) and cb.dtype == np.dtype("<u2")
     maxlen = int(lens.max())

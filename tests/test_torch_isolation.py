@@ -146,7 +146,8 @@ def test_wrappers_raise_instead_of_falling_back():
     with pytest.raises(ValueError):
         lor.lorenzo_encode(torch.empty((4, 4, 4), device="meta"), 0.1, 3)
     with pytest.raises(ValueError):
-        khf.hf_encode(torch.empty(16, dtype=torch.uint8, device="meta"), np.ones(256, np.uint8), np.zeros(256, np.uint32))
+        khf.hf_encode(torch.empty(16, dtype=torch.uint8, device="meta"), np.ones(256, np.uint8), np.zeros(256, np.uint32),
+                      np.zeros(256, np.int64))
     with pytest.raises(ValueError):
         khf.hf_decode(torch.empty(16, dtype=torch.uint8, device="meta"), torch.zeros(1, dtype=torch.int64, device="meta"),
                       torch.zeros(2, dtype=torch.int16, device="meta"), 1, 16)
