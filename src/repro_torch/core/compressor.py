@@ -54,7 +54,14 @@ choice: sample, stats and trial encodes), ``<stage>.encode``,
 ``compress.verify``, ``<stage>.decode``, ``decompress.blocks``,
 ``decompress.predict`` (also the Lorenzo and offset1d decodes),
 ``decompress.scatter``, and for v3 ``decompress.frames``: the frame table
-and the CRC checks); a span records only while a profiler is active.
+and the CRC checks); a span records only while a profiler is active. The
+host and transfer work between the stages has spans of its own:
+``compress.ingest`` (the move to the device, the finite scan and the
+bound's range read), ``compress.pack`` (the header and the sections into
+the container), ``decompress.parse`` (the container's header and section
+table), and ``decompress.upload`` (the anchor and outlier uploads, inside
+``decompress.blocks`` or ``decompress.predict``); the lossless engine adds
+``lossless.pack``, ``lossless.parse``, ``lossless.upload`` and ``hf.table``.
 
 Error-bound contract: ||x - decompress(compress(x))||_inf <= eb_abs, with
 eb_abs = eb * value_range(x) in the paper's default "rel" mode.
@@ -65,7 +72,6 @@ import dataclasses
 import json
 import struct
 import threading
-import time
 import zlib
 
 import numpy as np
@@ -398,7 +404,7 @@ class Compressor:
         #   last_telemetry: reset by compress() and decompress() unless held:
         #     backend, engine, device, fallbacks (always empty: nothing falls
         #     back), pipeline, verify, plan_cache ("hit"/"miss"), nonfinite,
-        #     psnr_search, decode timing, and the routes the stream format
+        #     psnr_search, decode (engine, out, bytes), and the routes the stream format
         #     chose (hf_decode, host_stages);
         #   last_damage: reset by decompress(); under on_error="skip"/"fill"
         #     the DamageReport and per-chunk intact mask of a salvaged
@@ -454,16 +460,19 @@ class Compressor:
         to carry on past a failure: a failing kernel or device raises."""
         self._telemetry()["fallbacks"].append({"point": point, "from": src, "to": dst, "error": repr(err)})
 
-    def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-
     def _abs_eb(self, x: torch.Tensor) -> float:
         if self.spec.eb_mode == "abs":
             return float(self.spec.eb)
         # range in f64: a float32 max-min of an extreme-range field overflows
-        rng = (float(x.max()) - float(x.min())) if x.numel() else 0.0
+        with span("compress.ingest"):
+            rng = (float(x.max()) - float(x.min())) if x.numel() else 0.0
         return float(self.spec.eb) * rng
+
+    def _upload(self, arr: np.ndarray) -> torch.Tensor:
+        """A copy of a container's host array (anchors, outlier indices or
+        values) on the compressor's device."""
+        with span("decompress.upload"):
+            return torch.from_numpy(arr.copy()).to(self.device)
 
     def _bitmap(self, raw: bytes, count: int) -> torch.Tensor:
         return _unpackbits(torch.from_numpy(np.frombuffer(raw, np.uint8).copy()).to(self.device), count)
@@ -479,9 +488,11 @@ class Compressor:
         if not self._telemetry_hold:
             self.last_telemetry = None
         self._telemetry()
-        xt = torch.as_tensor(x).to(device=self.device, dtype=torch.float32).contiguous()
-        fin = torch.isfinite(xt)
-        if xt.numel() and not bool(fin.all()):
+        with span("compress.ingest"):
+            xt = torch.as_tensor(x).to(device=self.device, dtype=torch.float32).contiguous()
+            fin = torch.isfinite(xt)
+            finite = not xt.numel() or bool(fin.all())
+        if not finite:
             return self._compress_nonfinite(xt, fin)
         return self._compress_finite(xt)
 
@@ -498,8 +509,9 @@ class Compressor:
         base_hdr = {"shape": list(x.shape), "predictor": sp.predictor, "eb_abs": eb_abs,
                     "anchor_stride": sp.anchor_stride, **psnr_hdr}
         if eb_abs == 0.0:  # constant (or empty) field: store the value verbatim
-            v = np.float32(x.reshape(-1)[0].item() if x.numel() else 0)
-            buf = _sections_pack(dict(base_hdr, mode="const"), [v.tobytes()])
+            with span("compress.pack"):
+                v = np.float32(x.reshape(-1)[0].item() if x.numel() else 0)
+                buf = _sections_pack(dict(base_hdr, mode="const"), [v.tobytes()])
         elif sp.predictor == "lorenzo":
             buf = self._compress_lorenzo(x, eb_abs, base_hdr)
         elif sp.predictor == "offset1d":
@@ -521,20 +533,23 @@ class Compressor:
         self._telemetry()["nonfinite"] = {"n": n_bad, "total": int(x.numel())}
         if n_bad == x.numel():
             header = {"shape": list(x.shape), "mode": "nonfinite", "n_nonfinite": n_bad}
-            return _sections_pack(header, [zlib.compress(pats.tobytes(), 6)])
+            with span("compress.pack"):
+                return _sections_pack(header, [zlib.compress(pats.tobytes(), 6)])
         fill = _median_f32(flat[~mask])
         xf = torch.where(mask, torch.tensor(np.float32(fill), device=x.device), flat).reshape(x.shape)
         ibuf = self._compress_finite(xf)
         header = {"shape": list(x.shape), "mode": "nfsafe", "n_nonfinite": n_bad, "fill": fill}
-        return _sections_pack(header, [ibuf, _packbits(mask).cpu().numpy().tobytes(),
-                                       zlib.compress(pats.tobytes(), 6)])
+        with span("compress.pack"):
+            return _sections_pack(header, [ibuf, _packbits(mask).cpu().numpy().tobytes(),
+                                           zlib.compress(pats.tobytes(), 6)])
 
     def _decompress_nonfinite(self, sections, shape) -> torch.Tensor:
         pats = np.frombuffer(zlib.decompress(sections[0]), np.int32).copy()
         return torch.from_numpy(pats).to(self.device).view(torch.float32).reshape(shape)
 
     def _decompress_nfsafe(self, sections, shape, tel: dict) -> torch.Tensor:
-        ihdr, isec = _sections_unpack(sections[0])
+        with span("decompress.parse"):
+            ihdr, isec = _sections_unpack(sections[0])
         y = self._decompress_sections(ihdr, isec, tel).reshape(-1).to(torch.float32).clone()
         mask = self._bitmap(sections[1], int(y.numel()))
         pats = np.frombuffer(zlib.decompress(sections[2]), np.int32).copy()
@@ -580,11 +595,13 @@ class Compressor:
         self.last_plan = inner.last_plan
         header = {"shape": list(x.shape), "mode": "pw_rel", "predictor": sp.predictor, "eb_rel": eb,
                   "eb_abs": float(eb_log), "n_zero": int(zero.sum())}
-        return _sections_pack(header, [ibuf, _packbits(sign).cpu().numpy().tobytes(),
-                                       _packbits(zero).cpu().numpy().tobytes()])
+        with span("compress.pack"):
+            return _sections_pack(header, [ibuf, _packbits(sign).cpu().numpy().tobytes(),
+                                           _packbits(zero).cpu().numpy().tobytes()])
 
     def _decompress_pw_rel(self, sections, shape, tel: dict) -> torch.Tensor:
-        ihdr, isec = _sections_unpack(sections[0])
+        with span("decompress.parse"):
+            ihdr, isec = _sections_unpack(sections[0])
         y = self._decompress_sections(ihdr, isec, tel).reshape(-1)
         sign = self._bitmap(sections[1], int(y.numel()))
         zero = self._bitmap(sections[2], int(y.numel()))
@@ -760,11 +777,12 @@ class Compressor:
             anc = blk.anchor_grid_batch(padded_np, stride)
             seq = reorder_codes_batch(cgrid, stride, sp.reorder)
         payload, penc = self._encode_codes(seq, pipe_override)
-        header = dict(base_hdr, mode="interp", anchor_stride=int(stride), padded=list(padded_shapes),
-                      batch=batch, splines=list(splines), schemes=list(schemes), reorder=bool(sp.reorder),
-                      n_outliers=int(oi.size), **penc)
-        buf = _sections_pack(header, [payload, anc.astype(np.float32, copy=False).tobytes(),
-                                      oi.tobytes(), ov.astype(np.float32, copy=False).tobytes()])
+        with span("compress.pack"):
+            header = dict(base_hdr, mode="interp", anchor_stride=int(stride), padded=list(padded_shapes),
+                          batch=batch, splines=list(splines), schemes=list(schemes), reorder=bool(sp.reorder),
+                          n_outliers=int(oi.size), **penc)
+            buf = _sections_pack(header, [payload, anc.astype(np.float32, copy=False).tobytes(),
+                                          oi.tobytes(), ov.astype(np.float32, copy=False).tobytes()])
         if ckey is not None and cached is None:
             with span("compress.plan_cache"):
                 self.plan_cache.put(ckey, {
@@ -780,16 +798,18 @@ class Compressor:
             codes, oi, ov = _lor.lorenzo_encode(xb, 2.0 * eb_abs, len(spatial))
         seq = codes.reshape(-1)
         payload, penc = self._encode_codes(seq if self._device_engine else seq.cpu().numpy())
-        header = dict(base_hdr, mode="lorenzo", batch=int(xb.shape[0]), spatial=list(spatial),
-                      n_outliers=int(oi.numel()), **penc)
-        return _sections_pack(header, [payload, oi.cpu().numpy().astype(np.int64).tobytes(),
-                                       ov.cpu().numpy().astype(np.int32).tobytes()])
+        with span("compress.pack"):
+            header = dict(base_hdr, mode="lorenzo", batch=int(xb.shape[0]), spatial=list(spatial),
+                          n_outliers=int(oi.numel()), **penc)
+            return _sections_pack(header, [payload, oi.cpu().numpy().astype(np.int64).tobytes(),
+                                           ov.cpu().numpy().astype(np.int32).tobytes()])
 
     def _compress_offset1d(self, x: torch.Tensor, eb_abs: float, base_hdr: dict) -> bytes:
         with span("compress.predict"):
             codes = lor.offset1d_encode(x, 2.0 * eb_abs)
         payload, hdr = fl_encode(codes.cpu().numpy())
-        return _sections_pack(dict(base_hdr, mode="offset1d", fl=hdr), [payload])
+        with span("compress.pack"):
+            return _sections_pack(dict(base_hdr, mode="offset1d", fl=hdr), [payload])
 
     # ------------------------------------------------ bound verification
     def _verify_check(self, x: torch.Tensor, buf: bytes, *, rel: bool):
@@ -914,7 +934,7 @@ class Compressor:
         ``out="numpy"`` returns a host ndarray; ``out="device"`` a tensor on
         the compressor's device (a CUDA tensor on the card; a v3 stream's
         chunks concatenate there). Records ``last_telemetry["decode"]``
-        (engine, out, seconds, bytes, MB/s).
+        (engine, out, the result's bytes).
 
         ``frames``: v3 only, the frame indices to decode, in any order; the
         result is those chunks concatenated along the chunk axis in that
@@ -936,7 +956,6 @@ class Compressor:
         if not hold:
             self.last_telemetry = None
         tel = self._telemetry()
-        t0 = time.perf_counter()
         self.last_damage = None
         if frames_mod.is_v3(buf):
             result = self._decompress_v3(buf, frames, on_error=on_error, fill_value=fill_value, out=out)
@@ -944,7 +963,8 @@ class Compressor:
             if frames is not None:
                 raise ValueError("frames= is only meaningful for v3 (chunked) containers")
             try:
-                header, sections = _sections_unpack(buf)
+                with span("decompress.parse"):
+                    header, sections = _sections_unpack(buf)
                 result = self._decompress_sections(header, sections, tel)
             except DEVICE_ERRORS:
                 raise
@@ -964,11 +984,8 @@ class Compressor:
         if out == "numpy" and isinstance(result, torch.Tensor):
             result = result.cpu().numpy()
         if not hold:
-            self._sync()
-            dt = time.perf_counter() - t0
             nbytes = int(result.nbytes) if isinstance(result, np.ndarray) else result.numel() * result.element_size()
-            tel["decode"] = {"engine": "device" if self._device_engine else "numpy", "out": out,
-                             "seconds": dt, "bytes": nbytes, "mbps": (nbytes / dt / 1e6) if dt > 0 else 0.0}
+            tel["decode"] = {"engine": "device" if self._device_engine else "numpy", "out": out, "bytes": nbytes}
         return result
 
     def _fill(self, shape, fill_value: float, out: str):
@@ -1136,9 +1153,9 @@ class Compressor:
                                             stride=stride, reorder=reorder)
                 cb = torch.from_numpy(blk.gather_blocks_batch(cgrid, blk.ANCHOR_STRIDE)).to(dev)
             # the decoder takes each block's anchors and its outliers, no dense grids
-            ab = blk.gather_blocks_batch_t(torch.from_numpy(anc.copy()).to(dev), blk.ANCHOR_STRIDE // stride)
-            keys, src = blk.block_keys_t(torch.from_numpy(oi.copy()).to(dev), padded_shapes)
-            vals = torch.from_numpy(ov.copy()).to(dev)[src]
+            ab = blk.gather_blocks_batch_t(self._upload(anc), blk.ANCHOR_STRIDE // stride)
+            keys, src = blk.block_keys_t(self._upload(oi), padded_shapes)
+            vals = self._upload(ov)[src]
         with span("decompress.predict"):
             recon_b = _interp.decompress_blocks(cb, ab, keys, vals, 2.0 * float(header["eb_abs"]), steps, stride)
         del cb, ab, keys, vals
@@ -1159,7 +1176,7 @@ class Compressor:
             codes = seq.reshape((int(header["batch"]),) + spatial)
             ofull = torch.zeros(codes.numel(), dtype=torch.int32, device=dev)
             if oi.size:
-                ofull[torch.from_numpy(oi.copy()).to(dev)] = torch.from_numpy(ov.copy()).to(dev)
+                ofull[self._upload(oi)] = self._upload(ov)
             out = lor.lorenzo_decode(codes, ofull.view(codes.shape), 2.0 * float(header["eb_abs"]), len(spatial))
         return out.reshape(shape)
 

@@ -24,6 +24,10 @@ cross over.
 * **bit1** — the bit-plane shuffle and its inverse, the bitshuffle CUDA
   kernels (repro_torch.kernels.bitshuffle) over 8192-byte blocks.
 
+The hf twins' host side (the histogram's or the lengths' read-back, the
+codebook, and on decode the pair LUT's build and the tables' upload) runs
+in an ``hf.table`` span inside the stage's own.
+
 An hf stream whose header has no ``offs`` table (streams written before
 the table existed) has no chunk entry points, so it decodes through the
 host reference decoder; that route is chosen by the format, recorded as
@@ -33,6 +37,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.profiler import record_function as span
 
 from ...kernels.bitshuffle import bitshuffle, bitunshuffle
 from ...kernels.histogram import histogram256
@@ -66,8 +71,10 @@ def _record(tel: dict | None, key: str, route: str) -> None:
 def hf_encode_device(data: torch.Tensor):
     """Device Huffman encode; payload bytes == ``huffman.encode``'s."""
     d = data.reshape(-1)
-    counts = _host(histogram256(d))
-    codes, lens, *_ = _hf.canonical_codes(_hf.code_lengths(counts))
+    hist = histogram256(d)
+    with span("hf.table"):
+        counts = _host(hist)
+        codes, lens, *_ = _hf.canonical_codes(_hf.code_lengths(counts))
     payload, chunk_bytes = hf_encode(d, lens, codes, counts)
     return payload, dict({"n": int(d.numel())}, **_hf.offset_table(chunk_bytes))
 
@@ -86,13 +93,14 @@ def hf_decode_device(payload: torch.Tensor, header: dict, tel: dict | None = Non
     nchunks = -(-n // _hf.CHUNK)
     if len(offs) != 4 * nchunks:
         raise ContainerError(f"hf offset table has {len(offs) // 4} entries for {nchunks} chunks")
-    lens = _host(payload[:256])
-    maxlen = int(lens.max())
-    if not 0 < maxlen <= _hf.MAXLEN:
-        raise ContainerError(f"hf code lengths out of range (max {maxlen})")
-    _, _, first_code, sym_table, offsets, counts = _hf.canonical_codes(lens.copy())
-    lut = _tensor(_hf._pair_lut(first_code, counts, sym_table, offsets, maxlen).view(np.int16), dev)
-    byte_offs = _tensor(np.frombuffer(offs, "<u4").copy(), dev)
+    with span("hf.table"):
+        lens = _host(payload[:256])
+        maxlen = int(lens.max())
+        if not 0 < maxlen <= _hf.MAXLEN:
+            raise ContainerError(f"hf code lengths out of range (max {maxlen})")
+        _, _, first_code, sym_table, offsets, counts = _hf.canonical_codes(lens.copy())
+        lut = _tensor(_hf._pair_lut(first_code, counts, sym_table, offsets, maxlen).view(np.int16), dev)
+        byte_offs = _tensor(np.frombuffer(offs, "<u4").copy(), dev)
     return hf_decode(payload[256 + 2 * nchunks:].contiguous(), byte_offs, lut, maxlen, n)
 
 

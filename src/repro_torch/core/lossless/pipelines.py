@@ -14,7 +14,10 @@ that hop is the format's, recorded in the caller's telemetry under
 ``host_stages``. ``decode(buf, device=...)`` is the symmetric read path:
 host stages decode first on the host, and the stream goes up to the device
 once, for the first stage with a twin. Either path gives the host path's
-bytes.
+bytes. Besides each stage's ``<stage>.encode`` / ``<stage>.decode`` span,
+the framing has its own: ``lossless.pack`` (the stage records, the stream's
+download and the bytes), ``lossless.parse`` (the records and each stage's
+header) and ``lossless.upload`` (the stream's host copy and its upload).
 
 Stream format (LLP2, shared with the JAX package): ``b"LLP2"``, a stage
 count, then one record per stage — flags byte (bit0 = store-through for a
@@ -109,18 +112,20 @@ def encode(data, pipeline: str | tuple, *, tel: dict | None = None) -> bytes:
             continue
         recs.append((name, 0, hb))
         cur = nxt
-    out = bytearray(_MAGIC)
-    out += struct.pack("<B", len(recs))
-    for name, flags, hb in recs:
-        nb = name.encode()
-        out += struct.pack("<BB", flags, len(nb)) + nb + struct.pack("<I", len(hb)) + hb
-    out += cur.cpu().numpy().tobytes() if device else cur.tobytes()
-    return bytes(out)
+    with span("lossless.pack"):
+        out = bytearray(_MAGIC)
+        out += struct.pack("<B", len(recs))
+        for name, flags, hb in recs:
+            nb = name.encode()
+            out += struct.pack("<BB", flags, len(nb)) + nb + struct.pack("<I", len(hb)) + hb
+        out += cur.cpu().numpy().tobytes() if device else cur.tobytes()
+        return bytes(out)
 
 
 def _upload(buf, device) -> torch.Tensor:
-    arr = np.frombuffer(buf, np.uint8) if not isinstance(buf, np.ndarray) else buf.reshape(-1)
-    return torch.from_numpy(arr.copy()).to(device)
+    with span("lossless.upload"):
+        arr = np.frombuffer(buf, np.uint8) if not isinstance(buf, np.ndarray) else buf.reshape(-1)
+        return torch.from_numpy(arr.copy()).to(device)
 
 
 def _host_bytes(cur):
@@ -136,28 +141,29 @@ def decode(buf, *, device=None, tel: dict | None = None):
     without one decodes on the host (recorded in ``tel``, which also
     receives the routes the twins record).
     """
-    mv = buf if isinstance(buf, memoryview) else memoryview(buf)
-    if mv[:4] == _MAGIC:
-        nstages = mv[4]
-        off = 5
-        recs = []
-        for _ in range(nstages):
-            flags, nlen = struct.unpack_from("<BB", mv, off)
-            off += 2
-            name = bytes(mv[off : off + nlen]).decode()
-            off += nlen
-            (hlen,) = struct.unpack_from("<I", mv, off)
-            off += 4
-            if not flags & 1:  # store-through records carry no header
-                recs.append((name, get_stage(name).unpack_header(bytes(mv[off : off + hlen]))))
-            off += hlen
-    else:
-        # pre-LLP2 stream: u32 length-prefixed JSON meta with dict headers
-        mlen = int.from_bytes(mv[:4], "little")
-        meta = json.loads(bytes(mv[4 : 4 + mlen]))
-        off = 4 + mlen
-        recs = [(name, hdr) for name, hdr in zip(meta["stages"], meta["headers"]) if not hdr.get("_skip")]
-    cur = mv[off:]
+    with span("lossless.parse"):
+        mv = buf if isinstance(buf, memoryview) else memoryview(buf)
+        if mv[:4] == _MAGIC:
+            nstages = mv[4]
+            off = 5
+            recs = []
+            for _ in range(nstages):
+                flags, nlen = struct.unpack_from("<BB", mv, off)
+                off += 2
+                name = bytes(mv[off : off + nlen]).decode()
+                off += nlen
+                (hlen,) = struct.unpack_from("<I", mv, off)
+                off += 4
+                if not flags & 1:  # store-through records carry no header
+                    recs.append((name, get_stage(name).unpack_header(bytes(mv[off : off + hlen]))))
+                off += hlen
+        else:
+            # pre-LLP2 stream: u32 length-prefixed JSON meta with dict headers
+            mlen = int.from_bytes(mv[:4], "little")
+            meta = json.loads(bytes(mv[4 : 4 + mlen]))
+            off = 4 + mlen
+            recs = [(name, hdr) for name, hdr in zip(meta["stages"], meta["headers"]) if not hdr.get("_skip")]
+        cur = mv[off:]
     for name, hdr in reversed(recs):
         st = get_stage(name)
         if device is not None and st.decode_device is not None:
