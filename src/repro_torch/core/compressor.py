@@ -84,6 +84,7 @@ from ..kernels.build import KernelError
 from . import blocks as blk
 from . import frames as frames_mod
 from . import lorenzo as lor
+from . import staging
 from .autotune import (DEFAULT_STRIDES, PredictorPlan, autotune, autotune_plan, levels_for_stride, plan_signature,
                        stats_bucket)
 from .errors import BoundViolationError, ContainerError, DamageReport, FrameCRCError, SpecError
@@ -305,15 +306,8 @@ class CompressorSpec:
 def _sections_pack(header: dict, sections: list[bytes]) -> bytes:
     """Container v2: binary header + u32/u64 section table."""
     hb = pack_obj(header)
-    out = bytearray(MAGIC)
-    out += struct.pack("<I", len(hb))
-    out += hb
-    out += struct.pack("<I", len(sections))
-    for s in sections:
-        out += struct.pack("<Q", len(s))
-    for s in sections:
-        out += s
-    return bytes(out)
+    table = struct.pack(f"<I{len(sections)}Q", len(sections), *(len(s) for s in sections))
+    return b"".join([MAGIC, struct.pack("<I", len(hb)), hb, table, *sections])
 
 
 def _sections_pack_v1(header: dict, sections: list[bytes]) -> bytes:
@@ -324,8 +318,16 @@ def _sections_pack_v1(header: dict, sections: list[bytes]) -> bytes:
     return MAGIC_V1 + len(hj).to_bytes(8, "little") + hj + b"".join(sections)
 
 
-def _sections_unpack(buf: bytes):
-    """(header, sections) of a v2 or v1 container."""
+def _byteview(buf) -> memoryview:
+    """A flat byte view of a bytes-like object, copying nothing."""
+    mv = memoryview(buf)
+    return mv if mv.format == "B" and mv.ndim == 1 else mv.cast("B")
+
+
+def _sections_unpack(buf):
+    """(header, sections) of a v2 or v1 container; the sections are views of
+    ``buf``, which may be any bytes-like object."""
+    buf = _byteview(buf)
     if buf[: len(MAGIC)] == MAGIC:
         off = len(MAGIC)
         (hlen,) = struct.unpack_from("<I", buf, off)
@@ -404,8 +406,11 @@ class Compressor:
         #   last_telemetry: reset by compress() and decompress() unless held:
         #     backend, engine, device, fallbacks (always empty: nothing falls
         #     back), pipeline, verify, plan_cache ("hit"/"miss"), nonfinite,
-        #     psnr_search, decode (engine, out, bytes), and the routes the stream format
-        #     chose (hf_decode, host_stages);
+        #     psnr_search, decode (engine, out, bytes; staged_bytes and
+        #     pageable_bytes, the container bytes uploaded through the pinned
+        #     ring and from pageable memory, which a held decode adds to its
+        #     caller's record), and the routes the stream format chose
+        #     (hf_decode, host_stages);
         #   last_damage: reset by decompress(); under on_error="skip"/"fill"
         #     the DamageReport and per-chunk intact mask of a salvaged
         #     container (None when intact);
@@ -468,14 +473,20 @@ class Compressor:
             rng = (float(x.max()) - float(x.min())) if x.numel() else 0.0
         return float(self.spec.eb) * rng
 
-    def _upload(self, arr: np.ndarray) -> torch.Tensor:
-        """A copy of a container's host array (anchors, outlier indices or
-        values) on the compressor's device."""
-        with span("decompress.upload"):
-            return torch.from_numpy(arr.copy()).to(self.device)
+    def _put(self, arr) -> torch.Tensor:
+        """A copy of a container's host array (or bytes-like section) on the
+        compressor's device (repro_torch.core.staging: on the card through
+        the pinned staging ring above 64 KiB), counted in
+        ``last_telemetry["decode"]``."""
+        return staging.upload(arr, self.device, self._telemetry())
 
-    def _bitmap(self, raw: bytes, count: int) -> torch.Tensor:
-        return _unpackbits(torch.from_numpy(np.frombuffer(raw, np.uint8).copy()).to(self.device), count)
+    def _upload(self, arr: np.ndarray) -> torch.Tensor:
+        """``_put`` of the anchors, outlier indices or values."""
+        with span("decompress.upload"):
+            return self._put(arr)
+
+    def _bitmap(self, raw, count: int) -> torch.Tensor:
+        return _unpackbits(self._put(raw), count)
 
     # -------------------------------------------------------------- compress
     def compress(self, x) -> bytes:
@@ -544,16 +555,16 @@ class Compressor:
                                            zlib.compress(pats.tobytes(), 6)])
 
     def _decompress_nonfinite(self, sections, shape) -> torch.Tensor:
-        pats = np.frombuffer(zlib.decompress(sections[0]), np.int32).copy()
-        return torch.from_numpy(pats).to(self.device).view(torch.float32).reshape(shape)
+        pats = np.frombuffer(zlib.decompress(sections[0]), np.int32)
+        return self._put(pats).view(torch.float32).reshape(shape)
 
     def _decompress_nfsafe(self, sections, shape, tel: dict) -> torch.Tensor:
         with span("decompress.parse"):
             ihdr, isec = _sections_unpack(sections[0])
         y = self._decompress_sections(ihdr, isec, tel).reshape(-1).to(torch.float32).clone()
         mask = self._bitmap(sections[1], int(y.numel()))
-        pats = np.frombuffer(zlib.decompress(sections[2]), np.int32).copy()
-        y.view(torch.int32)[mask] = torch.from_numpy(pats).to(self.device)  # NaN payloads included
+        pats = np.frombuffer(zlib.decompress(sections[2]), np.int32)
+        y.view(torch.int32)[mask] = self._put(pats)  # NaN payloads included
         return y.reshape(shape)
 
     # ------------------------------------------------------------- pw_rel
@@ -933,8 +944,12 @@ class Compressor:
 
         ``out="numpy"`` returns a host ndarray; ``out="device"`` a tensor on
         the compressor's device (a CUDA tensor on the card; a v3 stream's
-        chunks concatenate there). Records ``last_telemetry["decode"]``
-        (engine, out, the result's bytes).
+        chunks concatenate there). ``buf`` is any bytes-like object; its
+        sections are read as views, and each goes to the device once
+        (repro_torch.core.staging: on the card through a pinned staging ring
+        above 64 KiB). Records ``last_telemetry["decode"]`` (engine, out,
+        the result's bytes, and the uploaded bytes: ``staged_bytes`` through
+        the ring, ``pageable_bytes`` from pageable memory).
 
         ``frames``: v3 only, the frame indices to decode, in any order; the
         result is those chunks concatenated along the chunk axis in that
@@ -985,7 +1000,10 @@ class Compressor:
             result = result.cpu().numpy()
         if not hold:
             nbytes = int(result.nbytes) if isinstance(result, np.ndarray) else result.numel() * result.element_size()
-            tel["decode"] = {"engine": "device" if self._device_engine else "numpy", "out": out, "bytes": nbytes}
+            moved = tel.get("decode", {})
+            tel["decode"] = {"engine": "device" if self._device_engine else "numpy", "out": out, "bytes": nbytes,
+                             "staged_bytes": moved.get("staged_bytes", 0),
+                             "pageable_bytes": moved.get("pageable_bytes", 0)}
         return result
 
     def _fill(self, shape, fill_value: float, out: str):
@@ -1111,7 +1129,7 @@ class Compressor:
         if mode == "lorenzo":
             return self._decompress_lorenzo(header, sections, shape, tel)
         if mode == "offset1d":
-            codes = torch.from_numpy(fl_decode(sections[0], header["fl"])).to(self.device)
+            codes = self._put(fl_decode(sections[0], header["fl"]))
             with span("decompress.predict"):
                 return lor.offset1d_decode(codes, 2.0 * float(header["eb_abs"])).reshape(shape)
         if mode == "pw_rel":
@@ -1151,7 +1169,7 @@ class Compressor:
             else:
                 cgrid = restore_codes_batch(seq, batch, padded_shapes, fill=128, dtype=np.uint8,
                                             stride=stride, reorder=reorder)
-                cb = torch.from_numpy(blk.gather_blocks_batch(cgrid, blk.ANCHOR_STRIDE)).to(dev)
+                cb = self._put(blk.gather_blocks_batch(cgrid, blk.ANCHOR_STRIDE))
             # the decoder takes each block's anchors and its outliers, no dense grids
             ab = blk.gather_blocks_batch_t(self._upload(anc), blk.ANCHOR_STRIDE // stride)
             keys, src = blk.block_keys_t(self._upload(oi), padded_shapes)
@@ -1171,7 +1189,7 @@ class Compressor:
         if self._device_engine:
             seq = pipelines.decode(sections[0], device=dev, tel=tel)
         else:
-            seq = torch.from_numpy(pipelines.decode(sections[0]).copy()).to(dev)
+            seq = self._put(pipelines.decode(sections[0]))
         with span("decompress.predict"):
             codes = seq.reshape((int(header["batch"]),) + spatial)
             ofull = torch.zeros(codes.numel(), dtype=torch.int32, device=dev)

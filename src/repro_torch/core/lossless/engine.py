@@ -26,7 +26,10 @@ cross over.
 
 The hf twins' host side (the histogram's or the lengths' read-back, the
 codebook, and on decode the pair LUT's build and the tables' upload) runs
-in an ``hf.table`` span inside the stage's own.
+in an ``hf.table`` span inside the stage's own. A decode's uploads (hf's
+tables, the rre/rze flag bitmaps) go through repro_torch.core.staging (on
+the card the pinned ring above 64 KiB) and are counted in the caller's
+``tel``.
 
 An hf stream whose header has no ``offs`` table (streams written before
 the table existed) has no chunk entry points, so it decodes through the
@@ -42,6 +45,7 @@ from torch.profiler import record_function as span
 from ...kernels.bitshuffle import bitshuffle, bitunshuffle
 from ...kernels.histogram import histogram256
 from ...kernels.huffman import hf_decode, hf_encode
+from .. import staging
 from ..errors import ContainerError
 from . import bitshuffle as _bit
 from . import huffman as _hf
@@ -50,16 +54,12 @@ from . import rre as _rre
 _PACK_WEIGHTS = (128, 64, 32, 16, 8, 4, 2, 1)  # np.packbits bit order
 
 
-def _tensor(arr: np.ndarray, device) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
-
-
 def _host(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy()
 
 
 def _bytes_t(raw: bytes, device) -> torch.Tensor:
-    return _tensor(np.frombuffer(raw, np.uint8).copy(), device)
+    return torch.from_numpy(np.frombuffer(raw, np.uint8).copy()).to(device)
 
 
 def _record(tel: dict | None, key: str, route: str) -> None:
@@ -88,7 +88,7 @@ def hf_decode_device(payload: torch.Tensor, header: dict, tel: dict | None = Non
     offs = header.get("offs")
     if offs is None or "lens" in header:  # no chunk entry points in this format
         _record(tel, "hf_decode", "host-legacy")
-        return _tensor(_hf.decode(_host(payload).tobytes(), header), dev)
+        return staging.upload(_hf.decode(_host(payload).tobytes(), header), dev, tel)
     _record(tel, "hf_decode", "device")
     nchunks = -(-n // _hf.CHUNK)
     if len(offs) != 4 * nchunks:
@@ -99,8 +99,8 @@ def hf_decode_device(payload: torch.Tensor, header: dict, tel: dict | None = Non
         if not 0 < maxlen <= _hf.MAXLEN:
             raise ContainerError(f"hf code lengths out of range (max {maxlen})")
         _, _, first_code, sym_table, offsets, counts = _hf.canonical_codes(lens.copy())
-        lut = _tensor(_hf._pair_lut(first_code, counts, sym_table, offsets, maxlen).view(np.int16), dev)
-        byte_offs = _tensor(np.frombuffer(offs, "<u4").copy(), dev)
+        lut = staging.upload(_hf._pair_lut(first_code, counts, sym_table, offsets, maxlen).view(np.int16), dev, tel)
+        byte_offs = staging.upload(np.frombuffer(offs, "<u4"), dev, tel)
     return hf_decode(payload[256 + 2 * nchunks:].contiguous(), byte_offs, lut, maxlen, n)
 
 
@@ -152,7 +152,7 @@ def rze_encode_device(data, k: int):
     return _rr_encode_device(data, k, zero_mode=True)
 
 
-def _rr_decode_device(payload: torch.Tensor, header: dict, zero_mode: bool):
+def _rr_decode_device(payload: torch.Tensor, header: dict, zero_mode: bool, tel: dict | None):
     dev = payload.device
     n, k, nsym = int(header["n"]), int(header["k"]), int(header["nsym"])
     if nsym == 0:
@@ -174,7 +174,7 @@ def _rr_decode_device(payload: torch.Tensor, header: dict, zero_mode: bool):
         levels.append(meta[o : o + ls])
         o += ls
     bitmap = _rre._decompress_bitmap(top, levels, sizes)
-    flags = _unpackbits(_tensor(bitmap, dev), nsym)
+    flags = _unpackbits(staging.upload(bitmap, dev, tel), nsym)
     kept = payload[off + o:].view(-1, k)
     if zero_mode:
         out = torch.zeros((nsym, k), dtype=torch.uint8, device=dev)
@@ -186,12 +186,12 @@ def _rr_decode_device(payload: torch.Tensor, header: dict, zero_mode: bool):
 
 def rre_decode_device(payload, header: dict, tel: dict | None = None):
     """Device RRE-k decode; bytes == ``rre.rre_decode``'s."""
-    return _rr_decode_device(payload, header, False)
+    return _rr_decode_device(payload, header, False, tel)
 
 
 def rze_decode_device(payload, header: dict, tel: dict | None = None):
     """Device RZE-k decode; bytes == ``rre.rze_decode``'s."""
-    return _rr_decode_device(payload, header, True)
+    return _rr_decode_device(payload, header, True, tel)
 
 
 # --------------------------------------------------------------------- tcms

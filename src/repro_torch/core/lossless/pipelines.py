@@ -17,7 +17,8 @@ once, for the first stage with a twin. Either path gives the host path's
 bytes. Besides each stage's ``<stage>.encode`` / ``<stage>.decode`` span,
 the framing has its own: ``lossless.pack`` (the stage records, the stream's
 download and the bytes), ``lossless.parse`` (the records and each stage's
-header) and ``lossless.upload`` (the stream's host copy and its upload).
+header) and ``lossless.upload`` (the stream's one upload, through
+repro_torch.core.staging: on the card the pinned ring above 64 KiB).
 
 Stream format (LLP2, shared with the JAX package): ``b"LLP2"``, a stage
 count, then one record per stage — flags byte (bit0 = store-through for a
@@ -38,6 +39,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function as span
 
+from .. import staging
 from .stages import get_stage
 
 _MAGIC = b"LLP2"
@@ -118,14 +120,13 @@ def encode(data, pipeline: str | tuple, *, tel: dict | None = None) -> bytes:
         for name, flags, hb in recs:
             nb = name.encode()
             out += struct.pack("<BB", flags, len(nb)) + nb + struct.pack("<I", len(hb)) + hb
-        out += cur.cpu().numpy().tobytes() if device else cur.tobytes()
-        return bytes(out)
+        # the stream's bytes are copied once, into the joined result
+        return b"".join((out, np.ascontiguousarray(cur.cpu().numpy() if device else cur)))
 
 
-def _upload(buf, device) -> torch.Tensor:
+def _upload(buf, device, tel: dict | None) -> torch.Tensor:
     with span("lossless.upload"):
-        arr = np.frombuffer(buf, np.uint8) if not isinstance(buf, np.ndarray) else buf.reshape(-1)
-        return torch.from_numpy(arr.copy()).to(device)
+        return staging.upload(buf, device, tel)
 
 
 def _host_bytes(cur):
@@ -168,7 +169,7 @@ def decode(buf, *, device=None, tel: dict | None = None):
         st = get_stage(name)
         if device is not None and st.decode_device is not None:
             if not isinstance(cur, torch.Tensor):
-                cur = _upload(cur, device)
+                cur = _upload(cur, device, tel)
             with span(f"{name}.decode"):
                 cur = st.decode_device(cur, hdr, tel)
             continue
@@ -177,7 +178,7 @@ def decode(buf, *, device=None, tel: dict | None = None):
         out = st.decode(_host_bytes(cur), hdr)
         cur = out.tobytes() if isinstance(out, np.ndarray) else out
     if device is not None:
-        return cur if isinstance(cur, torch.Tensor) else _upload(cur, device)
+        return cur if isinstance(cur, torch.Tensor) else _upload(cur, device, tel)
     return np.frombuffer(cur, np.uint8)
 
 

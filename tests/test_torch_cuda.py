@@ -585,6 +585,119 @@ def test_threads_share_a_compressor_and_plan_cache_on_the_card(cuda, monkeypatch
     shared_compressor_keeps_each_threads_plan(cuda, monkeypatch)
 
 
+# ------------------------------------------------------ the pinned staging ring
+import importlib
+import os
+import threading
+
+from repro_torch.core import staging
+from repro_torch.core.compressor import _sections_unpack
+
+RING_SIZES = [0, 1, staging.SMALL, staging.SMALL + 1, staging.CHUNK - 1, staging.CHUNK, staging.CHUNK + 1,
+              3 * staging.CHUNK + 17]
+
+
+@pytest.mark.parametrize("n", RING_SIZES)
+def test_staging_ring_uploads_byte_equal(cuda, n):
+    """Above ``staging.SMALL`` bytes an upload goes through the ring, at
+    most that many by the plain asynchronous copy; both are byte-equal."""
+    raw = np.random.default_rng(n).integers(0, 256, n + 5, np.uint8).tobytes()
+    tel = {}
+    y = staging.upload(memoryview(raw)[5:], cuda, tel)  # a view at an odd offset
+    assert y.is_cuda and y.dtype == torch.uint8 and bytes(y.cpu().numpy()) == raw[5:]
+    staged = n > staging.SMALL
+    assert tel == {"decode": {"staged_bytes": n if staged else 0, "pageable_bytes": 0 if staged else n}}
+    f = np.frombuffer(raw, np.float32, count=n // 4, offset=1).reshape(-1, 1)  # typed, unaligned
+    z = staging.upload(f, cuda)
+    assert z.dtype == torch.float32 and tuple(z.shape) == f.shape and z.cpu().numpy().tobytes() == f.tobytes()
+
+
+def _ring_fields():
+    return [_walk((96, 96, 96), seed) for seed in (1, 2)]
+
+
+def _jax_decode(buf: bytes) -> np.ndarray:
+    """The JAX package's decode of ``buf``, on the host's CPU, never the card."""
+    os.environ.setdefault("JAX_PLATFORMS", "cpu")
+    R = importlib.import_module("repro.core")
+    return np.asarray(R.Compressor().decompress(bytes(buf)))
+
+
+def _check_ring_decode(y: np.ndarray, x: np.ndarray, ref: np.ndarray, buf: bytes) -> None:
+    """A card decode holds the bound of the field and of the JAX package's
+    decode (which differs from the port's by float rounding alone)."""
+    eb = T.Compressor.inspect(buf)["eb_abs"]
+    assert y.shape == x.shape == ref.shape
+    assert float(np.abs(y.astype(np.float64) - x).max()) <= eb * (1 + 1e-4)
+    assert float(np.abs(y.astype(np.float64) - ref).max()) <= 2 * eb
+
+
+def test_two_decodes_in_a_row_reuse_the_ring(cuda, monkeypatch):
+    """Decodes queued back to back through a ring of two 4 KiB chunks, which
+    the code stream's upload wraps many times, hold against the JAX
+    package's decodes, and the repeats are bit for bit the first."""
+    comp = Compressor()
+    xs = _ring_fields()
+    bufs = [comp.compress(x) for x in xs]
+    refs = [_jax_decode(b) for b in bufs]
+    monkeypatch.setattr(staging._local, "ring", staging.Ring(4096, 2))
+    ys = [comp.decompress(b, out="device") for b in bufs + bufs]
+    ys = [y.cpu().numpy() for y in ys]
+    for y, x, ref, b in zip(ys, xs + xs, refs + refs, bufs + bufs):
+        _check_ring_decode(y, x, ref, b)
+    assert all(np.array_equal(ys[i], ys[i + 2]) for i in range(2))
+
+
+def test_two_threads_decode_through_one_compressor_at_once(cuda):
+    comp = Compressor()
+    xs = _ring_fields()
+    bufs = [comp.compress(x) for x in xs]
+    refs = [_jax_decode(b) for b in bufs]
+    start = threading.Barrier(2)
+    got, rings, errors = {}, {}, []
+
+    def decode(i):
+        try:
+            staging._local.ring = staging.Ring(4096, 2)  # the stream's upload wraps it many times
+            start.wait(timeout=60)
+            ys = [comp.decompress(bufs[i], out="device") for _ in range(4)]
+            got[i] = [y.cpu().numpy() for y in ys]
+            rings[i] = staging._local.ring
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=decode, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads) and not errors, errors
+    assert rings[0] is not rings[1]
+    for i in range(2):
+        for y in got[i]:
+            _check_ring_decode(y, xs[i], refs[i], bufs[i])
+        assert all(np.array_equal(y, got[i][0]) for y in got[i])
+
+
+@pytest.mark.parametrize("pipeline", ["cr", "none"])
+def test_card_decode_stages_every_upload(cuda, pipeline):
+    """Every upload of a decode above ``staging.SMALL`` bytes (here the
+    code stream) is staged, the smaller ones (anchors, outliers) are not."""
+    comp = Compressor(pipeline=pipeline)
+    buf = comp.compress(_ring_fields()[0])
+    held = comp.last_telemetry["decode"]  # verify's decode, added to the compress's record
+    comp.decompress(buf, out="device")
+    tel = comp.last_telemetry["decode"]
+    _, sections = _sections_unpack(buf)
+    assert held == {"staged_bytes": tel["staged_bytes"], "pageable_bytes": tel["pageable_bytes"]}
+    small = sum(len(s) for s in sections[1:])
+    assert len(sections[0]) > staging.SMALL and all(len(s) <= staging.SMALL for s in sections[1:])
+    if pipeline == "none":  # the stream but its 5 bytes of LLP2 framing; the anchors and the outliers
+        assert tel["staged_bytes"] == len(sections[0]) - 5 and tel["pageable_bytes"] == small
+    else:  # the stages' tables and flag bitmaps besides, each where its size puts it
+        assert tel["staged_bytes"] > staging.SMALL and tel["pageable_bytes"] >= small
+
+
 # ------------------------------------------------------ checkpoints and guarantees
 @pytest.mark.parametrize("shape", [(9, 1024), (16, 300), (1, 17, 64)])
 def test_fields_of_one_block_row_compress_on_the_card(cuda, shape):

@@ -8,8 +8,8 @@ around the host and transfer work (``compress.ingest``, ``compress.pack``,
 ``lossless.upload``, ``decompress.upload``, ``hf.table``) appears where its
 work runs, the I/O spans never nest in each other, their names stay out of
 the stage metrics' ``.encode`` / ``.decode`` and the harness's ``bench.``,
-and the spans change no byte. ``last_telemetry["decode"]`` keeps the route
-and the result's size, and no timing."""
+and the spans change no byte. ``last_telemetry["decode"]`` keeps the route,
+the result's size and the uploaded bytes, and no timing."""
 import numpy as np
 import pytest
 import torch
@@ -127,7 +127,11 @@ def test_the_spans_change_no_byte_and_the_decode_holds_its_bound(traced):
 
 def test_decode_telemetry_holds_the_route_and_size_and_no_timing(traced):
     nbytes = traced["x"].numel() * 4
-    assert traced["tel"]["decode"] == {"engine": "device", "out": "device", "bytes": nbytes}
+    tel = traced["tel"]["decode"]  # a CPU device: every upload is a plain copy
+    assert tel == {"engine": "device", "out": "device", "bytes": nbytes, "staged_bytes": 0,
+                   "pageable_bytes": tel["pageable_bytes"]} and tel["pageable_bytes"] > 0
     comp = Compressor(CompressorSpec(predictor=traced["predictor"]), device="cpu")
     comp.decompress(traced["buf"])
-    assert comp.last_telemetry["decode"] == {"engine": "numpy", "out": "numpy", "bytes": nbytes}
+    tel = comp.last_telemetry["decode"]
+    assert tel == {"engine": "numpy", "out": "numpy", "bytes": nbytes, "staged_bytes": 0,
+                   "pageable_bytes": tel["pageable_bytes"]} and tel["pageable_bytes"] > 0
